@@ -26,6 +26,7 @@ over the two wrappers).
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -224,35 +225,41 @@ def build_library(force=False):
     return LIB_PATH
 
 
+def bind_entry_points(lib):
+    """Argument types of the two launch entry points of a built library."""
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    lib.soap_coeff_fwd.restype = i32
+    lib.soap_coeff_fwd.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr,  # is_f64, in x4, out x2
+        i32, i32, i32, i32, i32, ctypes.c_double, i32, ptr,
+    ]
+    lib.soap_coeff_bwd.restype = i32
+    lib.soap_coeff_bwd.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # is_f64, in x6, out
+        i32, i32, i32, i32, i32, ctypes.c_double, i32, ptr,
+    ]
+    return lib
+
+
 def _load():
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            ptr = ctypes.c_void_p
+            lib = bind_entry_points(ctypes.CDLL(build_library()))
             i32 = ctypes.c_int
             lib.soap_max_lmax.restype = i32
             lib.soap_max_lmax.argtypes = []
-            lib.soap_fwd_max_outputs.restype = i32
-            lib.soap_fwd_max_outputs.argtypes = []
+            lib.soap_smem_limit.restype = ctypes.c_longlong
+            lib.soap_smem_limit.argtypes = []
+            # (element size, S, lmax, nmax, K)
             lib.soap_fwd_smem_bytes.restype = ctypes.c_longlong
-            lib.soap_fwd_smem_bytes.argtypes = [i32, i32, i32, i32]
-            lib.soap_coeff_fwd.restype = i32
-            lib.soap_coeff_fwd.argtypes = [
-                i32, ptr, ptr, ptr, ptr, ptr, ptr,  # is_f64, in x4, out x2
-                i32, i32, i32, i32, i32, ctypes.c_double, i32, ptr,
-            ]
-            lib.soap_coeff_bwd.restype = i32
-            lib.soap_coeff_bwd.argtypes = [
-                i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # is_f64, in x6, out
-                i32, i32, i32, i32, i32, ctypes.c_double, i32, ptr,
-            ]
+            lib.soap_fwd_smem_bytes.argtypes = [i32] * 5
+            lib.soap_bwd_smem_bytes.restype = ctypes.c_longlong
+            lib.soap_bwd_smem_bytes.argtypes = [i32] * 5
+            lib.max_lmax = lib.soap_max_lmax()
             _lib = lib
     return _lib
-
-
-# shared memory a block may use without opting in to more
-_SMEM_LIMIT = 48 * 1024
 
 
 def _check_inputs(rvec, sidx, mask, radii, params):
@@ -270,13 +277,23 @@ def _check_inputs(rvec, sidx, mask, radii, params):
         if t.device != rvec.device:
             raise ValueError(f"{name} is on {t.device}, rvec on {rvec.device}")
     lib = _load()
-    if params.lmax > lib.soap_max_lmax():
-        raise ValueError(f"lmax {params.lmax} > {lib.soap_max_lmax()}")
-    L = params.lmax + 1
-    live = 2 * radii.shape[0] * (params.nmax + 1) * L * (L + 1) // 2
-    if live > lib.soap_fwd_max_outputs():
-        raise ValueError("too many channels for the forward kernel")
+    if params.lmax > lib.max_lmax:
+        raise ValueError(f"lmax {params.lmax} > {lib.max_lmax}")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_fits(kernel, esize, S, lmax, nmax, K):
+    """Whether the shared rows of ``kernel`` ("fwd" or "bwd") fit in one
+    block at these sizes; the library is asked once per shape."""
+    lib = _load()
+    need = getattr(lib, f"soap_{kernel}_smem_bytes")(esize, S, lmax, nmax, K)
+    return need <= lib.soap_smem_limit()
+
+
+def _fits(kernel, rvec, radii, params):
+    return _smem_fits(kernel, rvec.element_size(), radii.shape[0], params.lmax,
+                      params.nmax, rvec.shape[1])
 
 
 def _kernel_args(rvec, sidx, mask, radii):
@@ -294,6 +311,33 @@ def _raise_if_failed(code, what):
         raise RuntimeError(f"{what} kernel launch failed (cudaError {code})")
 
 
+def launch_fwd(lib, rvec, sidx, mask, radii, params, cr, ci):
+    """Launch ``lib``'s forward kernel on checked operands (the types of
+    ``_kernel_args``) on the current stream; returns its cudaError code."""
+    N, K, _ = rvec.shape
+    with torch.cuda.device(rvec.device):
+        return lib.soap_coeff_fwd(
+            int(rvec.dtype == torch.float64), rvec.data_ptr(),
+            sidx.data_ptr(), mask.data_ptr(), radii.data_ptr(),
+            cr.data_ptr(), ci.data_ptr(), N, K, radii.shape[0], params.lmax,
+            params.nmax, float(params.rc), int(params.cut_n),
+            torch.cuda.current_stream().cuda_stream,
+        )
+
+
+def launch_bwd(lib, rvec, sidx, mask, radii, crb, cib, params, rbar):
+    """Launch ``lib``'s backward kernel, as ``launch_fwd``."""
+    N, K, _ = rvec.shape
+    with torch.cuda.device(rvec.device):
+        return lib.soap_coeff_bwd(
+            int(rvec.dtype == torch.float64), rvec.data_ptr(),
+            sidx.data_ptr(), mask.data_ptr(), radii.data_ptr(),
+            crb.data_ptr(), cib.data_ptr(), rbar.data_ptr(), N, K,
+            radii.shape[0], params.lmax, params.nmax, float(params.rc),
+            int(params.cut_n), torch.cuda.current_stream().cuda_stream,
+        )
+
+
 def soap_coeff_fwd(rvec, sidx, mask, radii, params: SoapParams):
     """(cR, cI) (N, CH): CUDA kernel on a CUDA tensor, plain torch on a CPU
     tensor."""
@@ -303,26 +347,17 @@ def soap_coeff_fwd(rvec, sidx, mask, radii, params: SoapParams):
         raise ValueError(f"unsupported device {rvec.device}")
     lib = _check_inputs(rvec, sidx, mask, radii, params)
     rvec, sidx, mask, radii = _kernel_args(rvec, sidx, mask, radii)
-    N, K, _ = rvec.shape
+    N = rvec.shape[0]
     S = radii.shape[0]
     CH = channels(S, params)
-    smem = lib.soap_fwd_smem_bytes(rvec.element_size(), S, params.lmax,
-                                   params.nmax)
-    if smem > _SMEM_LIMIT:
+    if not _fits("fwd", rvec, radii, params):
         raise ValueError("species/nmax/lmax too large for the forward "
-                         "kernel's tile")
+                         "kernel's shared rows")
     cr = torch.empty((N, CH), dtype=rvec.dtype, device=rvec.device)
     ci = torch.empty((N, CH), dtype=rvec.dtype, device=rvec.device)
     if N == 0:
         return cr, ci
-    with torch.cuda.device(rvec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.soap_coeff_fwd(
-            int(rvec.dtype == torch.float64), rvec.data_ptr(),
-            sidx.data_ptr(), mask.data_ptr(), radii.data_ptr(),
-            cr.data_ptr(), ci.data_ptr(), N, K, S, params.lmax, params.nmax,
-            float(params.rc), int(params.cut_n), stream,
-        )
+    code = launch_fwd(lib, rvec, sidx, mask, radii, params, cr, ci)
     soap_coeff_fwd.launches += 1
     _raise_if_failed(code, "soap_coeff_fwd")
     return cr, ci
@@ -348,20 +383,12 @@ def soap_coeff_bwd(rvec, sidx, mask, radii, crb, cib, params: SoapParams):
             raise ValueError(f"{name} must be ({N}, {CH}) {rvec.dtype}")
         if t.device != rvec.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {rvec.device}")
-    if 2 * CH * rvec.element_size() > _SMEM_LIMIT:
+    if not _fits("bwd", rvec, radii, params):
         raise ValueError("too many channels for the backward kernel")
     rbar = torch.empty((N, K, 3), dtype=rvec.dtype, device=rvec.device)
     if N == 0:
         return rbar
-    with torch.cuda.device(rvec.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.soap_coeff_bwd(
-            int(rvec.dtype == torch.float64), rvec.data_ptr(),
-            sidx.data_ptr(), mask.data_ptr(), radii.data_ptr(),
-            crb.data_ptr(), cib.data_ptr(), rbar.data_ptr(), N, K, S,
-            params.lmax, params.nmax, float(params.rc), int(params.cut_n),
-            stream,
-        )
+    code = launch_bwd(lib, rvec, sidx, mask, radii, crb, cib, params, rbar)
     soap_coeff_bwd.launches += 1
     _raise_if_failed(code, "soap_coeff_bwd")
     return rbar

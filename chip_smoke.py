@@ -12,8 +12,9 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    its register / shared-memory / spill report is printed.
 2. Each kernel against its plain PyTorch version on the card, on the
    inputs of the main path (the 1008-atom bench snapshot at the MD neighbor
-   bucket and at rc, and the 4-species snapshot), in float64 and float32;
-   the backward also against torch autograd through the plain forward.
+   bucket and at rc, and the 4-species snapshot) in float64 and float32,
+   and on the 10,192-atom snapshot at the MD bucket rule in float32; the
+   backward also against torch autograd through the plain forward.
 3. Accuracy of ``Engine.predict`` (float32 on the card) on the 1008-atom
    Cu snapshot against the float64 reference ``baselines/_acc_ref.npz``,
    and the energy error of each float32 stage taken alone.
@@ -21,8 +22,10 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    folder>, calculator=None, skin=1.2)``: Langevin 300 K, 2 fs, friction
    0.02, chunk 100 (the main path, with every launch counter read around
    it), then 1000 NVE steps for the energy drift.
-5. Timings: steps/s of phase 4, each kernel's time (CUDA events) beside
-   its plain version's and its bound, and a profiler breakdown.
+5. Timings: steps/s of phase 4; each kernel's device time beside its
+   plain version's and its bound at three shapes (the MD bucket of phase
+   4, the 10,192-atom snapshot, the 4-species snapshot); a profiler
+   breakdown of the MD step.
 
 The line before the last is one JSON object with every kernel's numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -32,7 +35,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 import traceback
@@ -41,11 +43,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = os.path.join(HERE, "baselines", "bench_model.pckl")
 MODEL_MS = os.path.join(HERE, "baselines", "bench_model_ms.pckl")
 ACC_REF = os.path.join(HERE, "baselines", "_acc_ref.npz")
-REPS = (6, 6, 7)  # 4 * 252 = 1008 atoms
 SKIN = 1.2
-# published H100 SXM peaks (NVIDIA data sheet), the bound's denominators
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # float32 kernel vs plain: both sum up to K float32 terms in different
 # orders; K * eps ~ 2e-5 is the worst case at K = 176, sqrt(K) * eps the
 # typical one.  Relative to the largest magnitude of the result.
@@ -57,158 +55,29 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else "unknown"
-
-
-# ---------------------------------------------------------------- systems
-
-
-def bench_system():
-    """``bench.make_system((6, 6, 7))``: fcc Cu, a = 3.6, rattled 0.05."""
-    from autoforce_tpu_torch.system import bulk_fcc
-
-    s = bulk_fcc("Cu", 3.6).repeat(REPS)
-    s.rattle(0.05, seed=1)
-    return s
-
-
-def ms_system():
-    """``bench.make_ms_system((6, 6, 7))``: 4 species on an fcc host."""
-    import numpy as np
-
-    from autoforce_tpu_torch.system import bulk_fcc
-
-    s = bulk_fcc("Cu", 3.7).repeat(REPS)
-    rng = np.random.default_rng(0)
-    s.numbers[:] = rng.choice([3, 32, 15, 16], size=len(s),
-                              p=[0.4, 0.04, 0.08, 0.48])
-    s.rattle(0.02, seed=1)
-    return s
-
-
-# ------------------------------------------------------------ work counts
-
-
-def soap_work(n_valid, N, K, S, params, esize):
-    """(bytes, operations) of one forward and one backward call: each
-    input read once, each output written once (the backward reads only
-    the live m <= l cotangent channels); the least operations the function
-    needs for the slots this input holds (masked slots do no work)."""
-    L = params.lmax + 1
-    nf = params.nmax + 1
-    CH = S * nf * L * L
-    lm = L * (L + 1) // 2  # (l, m <= l) pairs
-    # harmonics: P recursion (5 per m < l-1, 2 + 1 for m = l-1, l), C/S
-    p_ops = sum(5 * max(l - 1, 0) + 3 for l in range(1, L)) + 6 * (L - 1)
-    setup = 25 + nf
-    fwd_slot = setup + p_ops + 2 * lm + 4 * nf * lm
-    dp_ops = sum(24 * max(l - 1, 0) + 11 for l in range(1, L))
-    # backward with the n-sum factored out of the angular work: per (l, m)
-    # the four sums over n of cotangent x (f_n, d f_n) (8 nf), then once
-    # Yr, Yi (2), the radial weight (4) and the three angular partials
-    # (10 + 10 + 6); per slot the radial terms (6 nf), dC/dS (4 per m > 0)
-    # and the radial weight times (x, y, z) (6)
-    bwd_slot = (setup + 10 + p_ops + dp_ops + 6 * nf + lm * (8 * nf + 32)
-                + 4 * (L - 1) + 6 + 3)
-    slot_in = K * (3 * esize + 4 + 1)  # rvec, int32 species, bool mask
-    fwd_bytes = N * slot_in + S * esize + 2 * N * CH * esize
-    bwd_bytes = (N * slot_in + S * esize + 2 * N * S * nf * lm * esize
-                 + N * K * 3 * esize)
-    return (fwd_bytes, n_valid * fwd_slot), (bwd_bytes, n_valid * bwd_slot)
-
-
-def bound(nbytes, ops, dtype_name):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
-
-
-def device_ms(fn, n, match=None):
-    """Device time per call of ``fn`` (ms): the summed durations of the
-    CUDA kernels it launches (those whose name holds ``match``), traced
-    with torch.profiler over ``n`` warmed calls; None when the profiler
-    records no device kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA
-          and (match is None or match in ev.name)]
-    return sum(us) / n / 1e3 if us else None
-
-
-def cuda_ms(fn, n):
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
-
-
 # ----------------------------------------------------------------- phases
 
 
 def phase_build():
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
+    from autoforce_tpu_torch.tools import soap_bench as sb
 
     t0 = time.time()
     sk.build_library(force=True)
     log(f"built {sk.LIB_PATH} in {time.time() - t0:.1f} s")
-    for line in sk.build_log.splitlines():
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-            log("  " + line.strip())
-
-
-def kernel_inputs(eng, system, kpad=None, cutoff=None):
-    """(rvec, sidx, mask, radii) of the descriptor call of ``predict`` on
-    ``system`` — the kernels' inputs on the main path."""
-    import torch
-
-    from autoforce_tpu_torch.engine import _env_rvec
-    from autoforce_tpu_torch.neighbors import neighbor_table
-
-    table = None
-    if cutoff is not None:
-        table = neighbor_table(system.positions, system.cell, system.pbc, cutoff)
-    cfg = eng.make_config(system, kpad=kpad, table=table)
-    with torch.no_grad():
-        rvec = _env_rvec(cfg.positions, cfg.cell, cfg).contiguous()
-    mask = cfg.nbr_mask & cfg.atom_mask[:, None]
-    return rvec, cfg.nbr_sidx, mask, eng.radii_table()
+    sb.print_build_report(sk.build_log)
 
 
 def phase_kernels(cases):
-    """Every kernel against its plain version on the card; returns the
-    float32 error on the MD-bucket case."""
+    """Every kernel against its plain version on the card, in the dtypes
+    each case names; returns the float32 errors by case."""
     import torch
 
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
 
     worst = {}
-    for name, (eng, args) in cases.items():
-        params = eng.params
-        for dt in (torch.float64, torch.float32):
+    for name, (params, args, dtypes) in cases.items():
+        for dt in dtypes:
             rvec, sidx, mask, radii = args
             rvec = rvec.to(dt)
             radii = radii.to(dt)
@@ -259,8 +128,10 @@ def phase_accuracy(model):
     import numpy as np
     import torch
 
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
     eng = model.engine
-    system = bench_system()
+    system = sb.bench_system()
     n = len(system)
     cfg = eng.make_config(system)
     ma = model.full_model_arrays()
@@ -403,11 +274,12 @@ def phase_md(model, card):
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
     from autoforce_tpu_torch.md.device_md import DeviceMD
     from autoforce_tpu_torch.system import maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import soap_bench as sb
 
     sk.soap_coeff_fwd.launches = 0
     sk.soap_coeff_bwd.launches = 0
     calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=SKIN)
-    system = bench_system()
+    system = sb.bench_system()
     system.calc = calc
     maxwell_boltzmann_velocities(system, 300, seed=3)
     dyn = DeviceMD(system, calc, dt=2 * units.fs, temperature_K=300,
@@ -433,11 +305,11 @@ def phase_md(model, card):
     for name, c in launches.items():
         if c == 0:
             raise AssertionError(f"{name} never launched on the MD path")
-    md_inputs = kernel_inputs(calc.engine, system, kpad=calc.cfg.nbr_idx.shape[1],
+    md_inputs = sb.kernel_inputs(calc.engine, system, kpad=calc.cfg.nbr_idx.shape[1],
                               cutoff=calc.engine.params.rc + SKIN)
 
     # NVE energy conservation (bench.accuracy_gate)
-    s = bench_system()
+    s = sb.bench_system()
     maxwell_boltzmann_velocities(s, 300, seed=11)
     calc2 = ActiveCalculator(covariance=model, calculator=None, skin=SKIN)
     s.calc = calc2
@@ -510,56 +382,69 @@ def phase_profile(dyn, ms_per_step, card):
             log("  " + line.rstrip()[:150])
 
 
-def phase_timings(md_inputs, params, worst, launches):
+def phase_timings(cases, worst, launches, card):
+    """Each kernel's device time beside its plain version's and its bound
+    at every timing shape; the MD bucket's numbers are the row's own."""
     import torch
 
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
+    from autoforce_tpu_torch.tools import soap_bench as sb
 
-    rvec, sidx, mask, radii = md_inputs
-    N, K, _ = rvec.shape
-    S = radii.shape[0]
-    CH = sk.channels(S, params)
-    g = torch.Generator(device="cuda").manual_seed(11)
-    crb = torch.randn((N, CH), generator=g, device="cuda", dtype=rvec.dtype)
-    cib = torch.randn((N, CH), generator=g, device="cuda", dtype=rvec.dtype)
-    n_valid = int(mask.sum().item())
-    (fb, fo), (bb, bo) = soap_work(n_valid, N, K, S, params, rvec.element_size())
-    dname = str(rvec.dtype).replace("torch.", "")
-    rows = []
-    specs = (
-        ("soap_coeff_fwd", 104, "soap_fwd_kernel",
-         lambda: sk.soap_coeff_fwd(rvec, sidx, mask, radii, params),
-         lambda: sk.soap_coeff_fwd_plain(rvec, sidx, mask, radii, params), fb, fo, 0),
-        ("soap_coeff_bwd", 146, "soap_bwd_kernel",
-         lambda: sk.soap_coeff_bwd(rvec, sidx, mask, radii, crb, cib, params),
-         lambda: sk.soap_coeff_bwd_plain(rvec, sidx, mask, radii, crb, cib, params),
-         bb, bo, 1),
-    )
-    for name, line, kname, kern, plain, nbytes, ops, w in specs:
-        # device time of the kernel and of the plain version's kernels; the
-        # elapsed time per call (CUDA events over back-to-back calls) is
-        # bounded by the host when the device time is shorter
-        ms = device_ms(kern, 200, kname)
-        plain_ms = device_ms(plain, 10)
-        call_ms = cuda_ms(kern, 200)
-        plain_call_ms = cuda_ms(plain, 10)
-        if ms is None or plain_ms is None:
-            log("profiler saw no device kernels: times are elapsed per call")
-            ms, plain_ms = call_ms, plain_call_ms
-        b_ms, b_by = bound(nbytes, ops, dname)
-        log(f"{name} {dname} N={N} K={K} S={S} ({n_valid} valid slots): device "
-            f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.1f} us), per call "
-            f"{call_ms * 1e3:.1f} us (plain {plain_call_ms * 1e3:.1f} us), bound "
-            f"{b_ms * 1e3:.2f} us ({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop)")
-        rows.append({
+    rows = {"soap_coeff_fwd": [], "soap_coeff_bwd": []}
+    for shape, (params, (rvec, sidx, mask, radii)) in cases.items():
+        N, K, _ = rvec.shape
+        S = radii.shape[0]
+        CH = sk.channels(S, params)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        crb = torch.randn((N, CH), generator=g, device="cuda", dtype=rvec.dtype)
+        cib = torch.randn((N, CH), generator=g, device="cuda", dtype=rvec.dtype)
+        (fb, fo), (bb, bo), (n_valid, n_live) = sb.soap_work(rvec, sidx, mask,
+                                                             radii, params)
+        dname = str(rvec.dtype).replace("torch.", "")
+        specs = (
+            ("soap_coeff_fwd", "soap_fwd_kernel",
+             lambda: sk.soap_coeff_fwd(rvec, sidx, mask, radii, params),
+             lambda: sk.soap_coeff_fwd_plain(rvec, sidx, mask, radii, params), fb, fo),
+            ("soap_coeff_bwd", "soap_bwd_kernel",
+             lambda: sk.soap_coeff_bwd(rvec, sidx, mask, radii, crb, cib, params),
+             lambda: sk.soap_coeff_bwd_plain(rvec, sidx, mask, radii, crb, cib, params),
+             bb, bo),
+        )
+        for name, kname, kern, plain, nbytes, ops in specs:
+            # device time of the kernel and of the plain version's kernels;
+            # the elapsed time per call (CUDA events over back-to-back calls)
+            # is bounded by the host when the device time is shorter
+            ms = sb.device_ms(kern, 200, kname)
+            plain_ms = sb.device_ms(plain, 10)
+            call_ms = sb.cuda_ms(kern, 200)
+            plain_call_ms = sb.cuda_ms(plain, 10)
+            if ms is None or plain_ms is None:
+                log("profiler saw no device kernels: times are elapsed per call")
+                ms, plain_ms = call_ms, plain_call_ms
+            b_ms, b_by = sb.bound(nbytes, ops, dname)
+            log(f"{name} {shape} {dname} N={N} K={K} S={S} ({n_valid} valid, "
+                f"{n_live} live slots): device {ms * 1e3:.2f} us (plain "
+                f"{plain_ms * 1e3:.1f} us), per call {call_ms * 1e3:.1f} us (plain "
+                f"{plain_call_ms * 1e3:.1f} us), bound {b_ms * 1e3:.2f} us ({b_by}: "
+                f"{nbytes / 1e6:.2f} MB, {ops / 1e6:.1f} Mop), {100 * b_ms / ms:.0f} % "
+                f"of the bound [{card}]")
+            rows[name].append({
+                "shape": shape, "N": N, "K": K, "S": S, "valid": n_valid,
+                "live": n_live, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by,
+            })
+    out = []
+    for w, (name, line) in enumerate((("soap_coeff_fwd", 104), ("soap_coeff_bwd", 146))):
+        md = rows[name][0]
+        out.append({
             "name": name, "route": "cuda",
             "source": "autoforce_tpu_torch/csrc/soap_coeff.cu",
             "replaces": f"autoforce_tpu/descriptor/pallas_soap.py:{line}",
-            "launches": launches[name], "max_abs_err": worst[w],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "launches": launches[name], "max_abs_err": worst["md_bucket"][w],
+            "ms": md["ms"], "plain_ms": md["plain_ms"], "bound_ms": md["bound_ms"],
+            "bound_by": md["bound_by"], "library_ms": None, "shapes": rows[name],
         })
-    return rows
+    return out
 
 
 def main():
@@ -576,38 +461,39 @@ def main():
               "(autoforce_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    card = card_line()
+    from autoforce_tpu_torch.io.model_io import load_model
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    card = sb.card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device 0: {kind}")
-
-    from autoforce_tpu_torch.io.model_io import load_model
-
     phase_build()
     model = load_model(MODEL, device="cuda", dtype=torch.float32)
     model_ms = load_model(MODEL_MS, device="cuda", dtype=torch.float32)
     eng, eng_ms = model.engine, model_ms.engine
-    system = bench_system()
-    rc = eng.params.rc
-    # the MD bucket: what ActiveCalculator gives at rc + skin
-    from autoforce_tpu_torch.neighbors import neighbor_table, round_up
-
-    kmax = neighbor_table(system.positions, system.cell, system.pbc, rc + SKIN).kmax
-    k_md = round_up(int(kmax * 1.2) + 4, 16)
+    # the MD bucket (what ActiveCalculator gives at rc + skin), the
+    # 10,192-atom snapshot at the same rule, and the 4-species snapshot
+    timing = sb.timing_cases(eng, eng_ms)
+    both = (torch.float64, torch.float32)
     cases = {
-        "md_bucket": (eng, kernel_inputs(eng, system, kpad=k_md, cutoff=rc + SKIN)),
-        "snapshot_rc": (eng, kernel_inputs(eng, system)),
-        "multispecies": (eng_ms, kernel_inputs(eng_ms, ms_system())),
+        "md_bucket": timing["md_bucket"] + (both,),
+        "snapshot_rc": (eng.params, sb.kernel_inputs(eng, sb.bench_system()), both),
+        "multispecies": timing["multispecies"] + (both,),
+        "scale_10k": timing["scale_10k"] + ((torch.float32,),),
     }
     worst = phase_kernels(cases)
+    del cases
     phase_accuracy(model)
     rates, launches, drift, md_inputs, dyn = phase_md(model, card)
+    k_md = timing["md_bucket"][1][0].shape[1]
     if md_inputs[0].shape[1] != k_md:
         log(f"note: MD bucket K={md_inputs[0].shape[1]} (phase 2 used {k_md})")
-    rows = phase_timings(md_inputs, eng.params, worst["md_bucket"], launches)
+    timing["md_bucket"] = (eng.params, md_inputs)
+    rows = phase_timings(timing, worst, launches, card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
-    log(f"summary: {len(system)}-atom Cu Langevin MD median "
+    log(f"summary: {len(md_inputs[0])}-atom Cu Langevin MD median "
         f"{rates[1]:.1f} steps/s [{card}]")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -64,6 +64,76 @@ def test_kernels_match_plain_on_card(cuda, dtype, nspecies):
         assert (a - b).abs().max().item() <= tol * scale
 
 
+def layout_batch(device, dtype, n, k, nspecies=1, seed=0, packed=False,
+                 empty_rows=False, lmax=3):
+    """Slots spread over 0.2-1.5 rc, so many lie at rc < d < rc + skin,
+    under a random mask that is not packed to the left of the row (or is,
+    with ``packed``); with ``empty_rows`` row 0 has no live slot (all kept
+    slots beyond rc) and row 1 is all masked."""
+    rng = np.random.default_rng(seed)
+    rc = PARAMS.rc
+    dirs = rng.normal(size=(n, k, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rvec = dirs * (rng.uniform(0.2, 1.5, (n, k)) * rc)[..., None]
+    sidx = rng.integers(0, nspecies, (n, k))
+    mask = rng.random((n, k)) < 0.75
+    if packed:
+        mask = np.sort(mask, axis=1)[:, ::-1].copy()
+    if empty_rows and n > 2:
+        rvec[0] *= 1.6 * rc / np.linalg.norm(rvec[0], axis=-1, keepdims=True)
+        mask[0] = True
+        mask[1] = False
+    rvec[~mask & (rng.random((n, k)) < 0.5)] = 0.0  # both padding values
+    radii = np.array([1.0, 1.2, 0.9, 1.1][:nspecies])
+    params = SoapParams(lmax=lmax, nmax=3, rc=rc)
+    return params, (torch.as_tensor(rvec, dtype=dtype, device=device),
+                    torch.as_tensor(sidx, device=device),
+                    torch.as_tensor(mask, device=device),
+                    torch.as_tensor(radii, dtype=dtype, device=device))
+
+
+# (id, layout_batch keywords, dtypes): the cases that the live-slot
+# compaction, the atoms per backward block and the forward's chunks meet
+LAYOUTS = [
+    ("N_not_multiple_of_atoms_per_block", dict(n=37, k=176), ("float64", "float32")),
+    ("N_1", dict(n=1, k=176), ("float64", "float32")),
+    ("K_1", dict(n=23, k=1), ("float64", "float32")),
+    ("K_300", dict(n=5, k=300), ("float64", "float32")),
+    ("K_700_two_forward_chunks", dict(n=3, k=700), ("float64", "float32")),
+    ("rows_without_live_slots", dict(n=9, k=64, empty_rows=True), ("float64", "float32")),
+    ("left_packed", dict(n=11, k=96, packed=True), ("float64", "float32")),
+    ("S_4", dict(n=13, k=80, nspecies=4), ("float64", "float32")),
+    ("lmax_7", dict(n=7, k=120, nspecies=2, lmax=7), ("float64",)),
+]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=[c[0] for c in LAYOUTS])
+def test_kernel_layouts_match_plain_on_card(cuda, layout):
+    _, kw, dtypes = layout
+    for dtype in dtypes:
+        dt = getattr(torch, dtype)
+        params, args = layout_batch(cuda, dt, seed=len(kw), **kw)
+        N = args[0].shape[0]
+        CH = sk.channels(args[3].shape[0], params)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        crb = torch.randn((N, CH), generator=g, device=cuda, dtype=dt)
+        cib = torch.randn((N, CH), generator=g, device=cuda, dtype=dt)
+        cr, ci = sk.soap_coeff_fwd(*args, params)
+        pr, pi = sk.soap_coeff_fwd_plain(*args, params)
+        rb = sk.soap_coeff_bwd(*args, crb, cib, params)
+        pb = sk.soap_coeff_bwd_plain(*args, crb, cib, params)
+        torch.cuda.synchronize()
+        # float32: reordered sums over K slots, relative to the largest value
+        tol = 1e-10 if dt == torch.float64 else 1e-5
+        for a, b in ((cr, pr), (ci, pi), (rb, pb)):
+            scale = 1.0 if dt == torch.float64 else b.abs().max().item()
+            assert (a - b).abs().max().item() <= tol * scale, dtype
+        # dead slots get exactly zero gradient
+        rvec, sidx, mask, radii = args
+        live = mask & (rvec.norm(dim=-1) < params.rc)
+        assert (rb[~live] == 0).all()
+
+
 def test_kernel_gradient_matches_autograd_on_card(cuda):
     rvec, sidx, mask, radii = batch(cuda, torch.float64, seed=3)
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -96,6 +166,18 @@ def test_wrappers_count_launches_and_check_inputs(cuda):
         sk.soap_coeff_fwd(rvec, sidx.cpu(), mask, radii, PARAMS)
     with pytest.raises(ValueError):
         sk.soap_coeff_bwd(*args, cr[:, :-1].contiguous(), ci, PARAMS)
+    # channels whose shared rows exceed a block: refused before launching,
+    # on the first call of a shape and on the cached check of the next
+    big = SoapParams(lmax=7, nmax=50, rc=4.0)
+    r64 = rvec.double()
+    wide = torch.ones(30, dtype=torch.float64, device=cuda)
+    z = torch.zeros((r64.shape[0], sk.channels(30, big)), dtype=torch.float64,
+                    device=cuda)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="too large"):
+            sk.soap_coeff_fwd(r64, sidx, mask, wide, big)
+        with pytest.raises(ValueError, match="too many channels"):
+            sk.soap_coeff_bwd(r64, sidx, mask, wide, z, z, big)
     assert sk.soap_coeff_fwd.launches == 1 and sk.soap_coeff_bwd.launches == 1
 
 

@@ -146,3 +146,76 @@ def test_channel_layout_matches_reshape():
         cr.numpy().reshape(cr.shape[0], 2, PARAMS.nmax + 1, L, L),
         np.asarray(cR), atol=1e-10,
     )
+
+
+def dead_slot_batch(seed, n=6, k=20, nspecies=2):
+    """Slots spread over 0.3-1.6 rc (one exactly at rc, of unit radius)
+    under a random mask; masked slots keep their coordinates, many of them
+    inside rc.  Returns the batch and the live slots (kept, d < rc)."""
+    rng = np.random.default_rng(seed)
+    rc = PARAMS.rc
+    dirs = rng.normal(size=(n, k, 3))
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rvec = dirs * (rng.uniform(0.3, 1.6, (n, k)) * rc)[..., None]
+    sidx = rng.integers(0, nspecies, (n, k))
+    rvec[0, 0] = [rc, 0.0, 0.0]
+    sidx[0, 0] = 0
+    mask = rng.random((n, k)) < 0.7
+    mask[0, 0] = True
+    radii = np.array([1.0, 1.2][:nspecies])
+    live = mask & (np.linalg.norm(rvec, axis=-1) < rc)
+    assert live.any() and (mask & ~live).any() and (~mask & ~live).any()
+    return (rvec, sidx, mask, radii), live
+
+
+def _coefficients(route, rvec, sidx, mask, radii):
+    if route == "plain":
+        cr, ci = sk.soap_coeff_fwd_plain(*as_torch((rvec, sidx, mask, radii)), PARAMS)
+        return cr.numpy(), ci.numpy()
+    cr, ci = sesoap_coefficients_pl(*as_jax((rvec, sidx, mask, radii)), JPARAMS,
+                                    interpret=True)
+    return np.asarray(cr), np.asarray(ci)
+
+
+@pytest.mark.parametrize("route", ["plain", "pallas"])
+def test_dead_slots_add_exactly_zero(route):
+    """Masked slots and slots at d >= rc add exactly zero to cR and cI:
+    alone they give zero, and dropping them changes no bit."""
+    (rvec, sidx, mask, radii), live = dead_slot_batch(seed=30)
+    for c in _coefficients(route, rvec, sidx, mask & ~live, radii):
+        assert (c == 0).all()
+    full = _coefficients(route, rvec, sidx, mask, radii)
+    only_live = _coefficients(route, rvec, sidx, live, radii)
+    for a, b in zip(full, only_live):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(full[0]).max() > 0
+
+
+@pytest.mark.parametrize("route", ["plain", "autograd", "pallas"])
+def test_dead_slots_get_exactly_zero_gradient(route):
+    (rvec, sidx, mask, radii), live = dead_slot_batch(seed=31)
+    rng = np.random.default_rng(32)
+    CH = sk.channels(2, PARAMS)
+    crb = rng.normal(size=(rvec.shape[0], CH))
+    cib = rng.normal(size=(rvec.shape[0], CH))
+    if route == "pallas":
+        _, sidx_j, mask_j, radii_j = as_jax((rvec, sidx, mask, radii))
+
+        def loss(rv):
+            cr, ci = sesoap_coefficients_pl(rv, sidx_j, mask_j, radii_j, JPARAMS,
+                                            interpret=True)
+            return (cr * crb).sum() + (ci * cib).sum()
+
+        g = np.asarray(jax.grad(loss)(jnp.asarray(rvec)))
+    else:
+        rv, st, mt, rt = as_torch((rvec, sidx, mask, radii))
+        cbt, cit = torch.as_tensor(crb), torch.as_tensor(cib)
+        if route == "plain":
+            g = sk.soap_coeff_bwd_plain(rv, st, mt, rt, cbt, cit, PARAMS).numpy()
+        else:
+            rv = rv.clone().requires_grad_(True)
+            cr, ci = sk.soap_coeff_fwd_plain(rv, st, mt, rt, PARAMS)
+            (g,) = torch.autograd.grad((cr * cbt).sum() + (ci * cit).sum(), rv)
+            g = g.numpy()
+    assert (g[~live] == 0).all()
+    assert (np.abs(g[live]).max(axis=-1) > 0).all()

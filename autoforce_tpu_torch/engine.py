@@ -1,5 +1,5 @@
-"""Device engine: predict / descriptor functions on torch tensors (port of
-``autoforce_tpu/engine.py``, SOAP dot kernel only).
+"""Device engine: predict / descriptor / kernel-block functions on torch
+tensors (port of ``autoforce_tpu/engine.py``, SOAP dot kernel only).
 
 The host state machine (:mod:`..calculator.active`, :mod:`..regression.sgpr`)
 calls a small set of functions on padded, statically-shaped tensors:
@@ -9,6 +9,13 @@ calls a small set of functions on padded, statically-shaped tensors:
                             backward pass)
   * ``descriptors_fn``    — per-LCE descriptors of a configuration
   * ``env_descriptors_fn``— descriptors of raw environments (inducing set)
+  * ``gram_self_fn``      — LCE x LCE kernel of one configuration (seeding)
+  * ``kernel_cols_multi_fn`` — (Ke, -dKe/dpos, dKe/deps) columns of several
+                            inducing envs against several configurations
+                            (add_inducing; the Engine's ``kernel_col`` and
+                            ``kernel_col_batch`` are its one-env cases)
+  * ``kernel_block_fn``   — the same against the whole inducing set
+                            (add_data)
 
 The descriptor inside them goes through the SOAP coefficient kernels
 (``descriptor.soap_kernels.sesoap_descriptors_k``).  Pair terms,
@@ -26,8 +33,12 @@ import torch
 
 from . import resolve_device
 from .descriptor.radial import as_radii
-from .descriptor.soap import SoapParams
-from .descriptor.soap_kernels import sesoap_descriptors_k
+from .descriptor.soap import SoapParams, power_spectrum
+from .descriptor.soap_kernels import (
+    sesoap_descriptors_k,
+    soap_coeff_bwd,
+    soap_coeff_fwd,
+)
 from .kernels import covloss_beta, gram
 from .neighbors import neighbor_table, reverse_slots_host, round_up
 
@@ -180,6 +191,147 @@ def env_descriptors_fn(envs: EnvArrays, radii, params):
     p = sesoap_descriptors_k(envs.rvec, envs.sidx, envs.mask, radii, params)
     lone = ~envs.mask.any(dim=-1)
     return p, lone
+
+
+@torch.no_grad()
+def gram_self_fn(cfg: ConfigArrays, radii, params, exponent):
+    """LCE x LCE kernel of one configuration (model seeding)."""
+    p, lone = _config_descriptors(cfg.positions, cfg.cell, cfg, radii, params)
+    return gram(p, cfg.numbers, lone, p, cfg.numbers, lone, exponent)
+
+
+def _atom_sum(rbar, cfg):
+    """sum over the slots (i, k) with nbr_idx[i, k] = b of rbar[..., i, k, :]
+    for every atom b: the neighbor-gather part of d/dpos.  Through the
+    reverse slots (a gather, fixed sum order) where the config has them,
+    else a scatter-add."""
+    lead = rbar.shape[:-3]
+    n, k = cfg.nbr_idx.shape
+    flat = rbar.reshape(*lead, n * k, 3)
+    if cfg.nbr_rev is not None:
+        good = (cfg.nbr_rev >= 0)[..., None]
+        taken = flat[..., cfg.nbr_rev.long().clamp(0, n * k - 1), :]
+        return torch.where(good, taken, torch.zeros_like(taken)).sum(dim=-2)
+    out = torch.zeros((*lead, n, 3), dtype=rbar.dtype, device=rbar.device)
+    return out.index_add_(len(lead), cfg.nbr_idx.reshape(-1).long(), flat)
+
+
+class _Rows(NamedTuple):
+    """The rows of same-bucket configurations stacked, their coefficients
+    (one forward launch) and the power spectrum, its graph kept for the
+    column backwards."""
+    r0: torch.Tensor
+    sidx: torch.Tensor
+    mask: torch.Tensor
+    numbers: torch.Tensor
+    amask: torch.Tensor
+    lone: torch.Tensor
+    cr: torch.Tensor
+    ci: torch.Tensor
+    p: torch.Tensor
+
+
+def _stack_rows(cfgs, radii, params) -> _Rows:
+    """The per-configuration part of the kernel columns."""
+    with torch.no_grad():
+        r0 = torch.cat([_env_rvec(c.positions, c.cell, c) for c in cfgs])
+        mask = torch.cat([c.nbr_mask & c.atom_mask[:, None] for c in cfgs])
+        sidx = torch.cat([c.nbr_sidx for c in cfgs])
+        numbers = torch.cat([c.numbers for c in cfgs])
+        amask = torch.cat([c.atom_mask for c in cfgs])
+        cr, ci = soap_coeff_fwd(r0, sidx, mask, radii, params)
+        within = mask & ((r0 * r0).sum(-1) < params.rc**2)
+        lone = amask & ~within.any(dim=1)
+    S, L = radii.shape[0], params.lmax + 1
+    shape = (r0.shape[0], S, params.nmax + 1, L, L)
+    cr.requires_grad_(True)
+    ci.requires_grad_(True)
+    with torch.enable_grad():
+        p = power_spectrum(cr.reshape(shape), ci.reshape(shape), params)
+    return _Rows(r0, sidx, mask, numbers, amask, lone, cr, ci, p)
+
+
+def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
+             exponent):
+    """The per-column part: (ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3))
+    of C inducing environments against the stacked rows of ``cfgs``."""
+    n, kpad = cfgs[0].nbr_idx.shape
+    B, C = len(cfgs), x_desc.shape[0]
+    p, amask = rows.p, rows.amask
+    dtype = torch.promote_types(p.dtype, x_desc.dtype)
+    x = x_desc.to(dtype)
+    dot = p.detach().to(dtype) @ x.T  # (B n, C)
+    same = (rows.numbers[:, None] == x_num[None, :]).to(dtype)
+    valid = same * amask[:, None].to(dtype)
+    k = (dot**exponent + (rows.lone[:, None] & x_lone[None, :]).to(dtype)) * valid
+    ke = k.reshape(B, n, C).sum(dim=1).T
+    # dKe_j / dp_i = zeta (p_i . x_j)^(zeta - 1) x_j  (lone term: constant)
+    w = exponent * dot ** (exponent - 1) * valid
+    g = w.T.to(p.dtype)[:, :, None] * x.to(p.dtype)[:, None, :]  # (C, B n, D)
+    gcr, gci = torch.autograd.grad(p, (rows.cr, rows.ci), g,
+                                   is_grads_batched=True, retain_graph=True)
+    nrows = B * n
+    rbar = soap_coeff_bwd(
+        rows.r0.repeat(C, 1, 1), rows.sidx.repeat(C, 1),
+        rows.mask.repeat(C, 1), radii,
+        gcr.reshape(C * nrows, -1).contiguous(),
+        gci.reshape(C * nrows, -1).contiguous(), params,
+    ).reshape(C, B, n, kpad, 3)
+    kf, kv = [], []
+    r0 = rows.r0.reshape(B, n, kpad, 3)
+    for b, cfg in enumerate(cfgs):
+        rb = rbar[:, b]
+        dpos = _atom_sum(rb, cfg) - rb.sum(dim=-2)
+        kf.append(-dpos * cfg.atom_mask[:, None].to(dpos.dtype))
+        deps = torch.einsum("nka,cnkb->cab", r0[b], rb)
+        kv.append(0.5 * (deps + deps.transpose(1, 2)))
+    return ke, torch.stack(kf, dim=1), torch.stack(kv, dim=1)
+
+
+def kernel_cols_multi_fn(cfgs, x_desc, x_num, x_lone, radii, params, exponent):
+    """(Ke, Kf, Kv) of C inducing environments against B same-bucket
+    configurations: ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3).
+
+        Ke[j, b] = sum_i k(p_i, x_j) over the atoms of config b
+        Kf = -dKe/dpos,  Kv = sym(dKe/deps)   (one strain per config)
+
+    The JAX package takes one VJP per column under ``vmap``
+    (``kernel_col_batch_fn`` / ``kernel_cols_multi_fn`` /
+    ``kernel_block_fn``).  Here the configurations' rows are stacked, the
+    forward kernel runs once on all of them, the C column cotangents are
+    carried through the power spectrum by one batched backward, and the
+    backward kernel runs once on the rows repeated C times.  Descriptors
+    and both kernels work in the configurations' type; the Gram block in
+    the higher of that and the inducing descriptors' (as ``predict_fn``)."""
+    cfgs = list(cfgs)
+    return _columns(_stack_rows(cfgs, radii, params), cfgs, x_desc, x_num,
+                    x_lone, radii, params, exponent)
+
+
+def kernel_block_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
+                    exponent, batch_size=64):
+    """(Ke row (M,), Kf block (N, 3, M), Kv block (3, 3, M)) of a
+    configuration against the inducing set: one forward launch and power
+    spectrum, then ``batch_size`` columns per backward-kernel launch;
+    columns beyond the live inducing set are 0 (the padding rows' kernel
+    is 0 in the JAX package too)."""
+    mcap = model.mu.shape[0]
+    m = int(model.m_mask.sum())
+    n = cfg.nbr_idx.shape[0]
+    dtype = torch.promote_types(cfg.positions.dtype, model.X_desc.dtype)
+    dev = cfg.positions.device
+    ke = torch.zeros(mcap, dtype=dtype, device=dev)
+    kf = torch.zeros((n, 3, mcap), dtype=cfg.positions.dtype, device=dev)
+    kv = torch.zeros((3, 3, mcap), dtype=cfg.positions.dtype, device=dev)
+    rows = _stack_rows([cfg], radii, params)
+    for lo in range(0, m, batch_size):
+        sl = slice(lo, min(lo + batch_size, m))
+        e, f, v = _columns(rows, [cfg], model.X_desc[sl], model.X_num[sl],
+                           model.X_lone[sl], radii, params, exponent)
+        ke[sl] = e[:, 0]
+        kf[..., sl] = f[:, 0].permute(1, 2, 0)
+        kv[..., sl] = v[:, 0].permute(1, 2, 0)
+    return ke, kf, kv
 
 
 # --------------------------------------------------------------------------
@@ -395,6 +547,52 @@ class Engine:
         vs = self._tensor(np.asarray(vscale_atom, dtype=np.float64), self.dtype)
         return predict_fn(cfg, model, self.radii_table(), vs, self.params,
                           self.exponent)
+
+    def gram_self(self, cfg: ConfigArrays):
+        return gram_self_fn(cfg, self.radii_table(), self.params, self.exponent)
+
+    def kernel_cols_multi(self, cfg_list, x_descs, x_nums, x_lones):
+        """(ke, kf, kv) of a batch of inducing envs against a list of
+        same-bucket configurations, output axes (env, config, ...).
+
+        ``x_descs`` / ``x_lones`` may be device tensors (fresh staging
+        outputs): they are consumed without a host sync, so callers can
+        chain staging -> columns -> one device_fetch."""
+        if isinstance(x_descs, torch.Tensor):
+            desc = x_descs.to(self.device, self.model_dtype)
+        else:
+            desc = self._tensor(np.asarray(x_descs), self.model_dtype)
+        if isinstance(x_lones, torch.Tensor):
+            lone = x_lones.to(self.device, torch.bool)
+        else:
+            lone = self._tensor(np.asarray(x_lones, dtype=bool))
+        num = self._tensor(np.asarray(x_nums, dtype=np.int32))
+        return kernel_cols_multi_fn(list(cfg_list), desc, num, lone,
+                                    self.radii_table(), self.params,
+                                    self.exponent)
+
+    def kernel_col_batch(self, cfg_list, x_desc, x_num, x_lone):
+        """(ke (B,), kf (B, N, 3), kv (B, 3, 3)) of one inducing env
+        against a list of same-bucket configurations."""
+        ke, kf, kv = self.kernel_cols_multi(
+            cfg_list, np.asarray(x_desc)[None], [x_num], [bool(x_lone)])
+        return ke[0], kf[0], kv[0]
+
+    def kernel_col(self, cfg: ConfigArrays, x_desc, x_num, x_lone):
+        """(ke, kf (N, 3), kv (3, 3)) of one inducing env against one
+        configuration."""
+        ke, kf, kv = self.kernel_col_batch([cfg], x_desc, x_num, x_lone)
+        return ke[0], kf[0], kv[0]
+
+    def kernel_block(self, cfg: ConfigArrays, model: ModelArrays,
+                     batch_size=64):
+        """(Ke (M,), Kf (N, 3, M), Kv (3, 3, M)) of a configuration against
+        the inducing set.  Only the column route exists here: the JAX
+        package's Jacobian route (``kernel_block_jac_fn``, forward mode
+        through the descriptor) is not ported, and it gives the same
+        numbers."""
+        return kernel_block_fn(cfg, model, self.radii_table(), self.params,
+                               self.exponent, batch_size=batch_size)
 
     # ------------------------------------------------------------ model sync
     def model_arrays(self, X_desc, X_num, X_lone, mu, choli, mcap=None) -> ModelArrays:

@@ -1,10 +1,12 @@
-"""Carry model weights and configurations across from the JAX package.
+"""Carry model state and configurations across from the JAX package.
 
 The JAX package's ``ModelArrays`` / ``ConfigArrays`` hold the same padded
 fields as this package's; given them as numpy arrays (for example from
 ``SgprModel.full_model_arrays()`` and ``Engine.make_config``), these
 functions build the torch counterparts, so both packages can compute on
-identical inputs.
+identical inputs.  ``sgpr_model_from_jax`` carries a whole trained (or
+learning) model.  Nothing here imports the JAX package: its objects are
+read through their numpy fields.
 """
 
 from __future__ import annotations
@@ -50,3 +52,70 @@ def config_from_numpy(positions, cell, numbers, atom_mask, nbr_idx, nbr_off,
         nbr_rev=None if nbr_rev is None else _t(
             np.asarray(nbr_rev, dtype=np.int32), device),
     )
+
+
+def sgpr_model_from_jax(jmodel, device, dtype=None):
+    """A port :class:`SgprModel` holding the whole state of a JAX package
+    ``SgprModel`` (passed as the object; only its numpy fields and plain
+    attributes are read): inducing environments with their staged
+    descriptors, data records (systems and targets; configs are rebuilt by
+    this package's engine), M/Ke/Kf/Kv, mu, choli, noise, mean weights,
+    vscale and stats.  Both packages can then continue learning from one
+    state."""
+    from ..descriptor.radial import DefaultRadii, RadiiFromDict, UniformRadii
+    from ..descriptor.soap import SoapParams
+    from ..engine import Engine
+    from ..regression.sgpr import DataRecord, InducingEnv, SgprModel
+    from ..system import System
+
+    je = jmodel.engine
+    radii = je.radii
+    kind = type(radii).__name__
+    if kind == "UniformRadii":
+        radii = UniformRadii(radii.value)
+    elif kind == "DefaultRadii":
+        radii = DefaultRadii(radii.default, dict(radii.special))
+    elif kind == "RadiiFromDict":
+        radii = RadiiFromDict(dict(radii.d))
+    else:
+        raise TypeError(f"cannot carry radii {radii!r}")
+    p = je.params
+    engine = Engine(
+        params=SoapParams(lmax=p.lmax, nmax=p.nmax, rc=p.rc, cut_n=p.cut_n,
+                          normalize=p.normalize),
+        exponent=je.exponent, radii=radii, species=list(je.species),
+        dtype=dtype, device=device, pair_terms=tuple(je.pair_terms),
+        chemical=je.chemical,
+        kernel=None if je.kernel_kind == "dot" else je.kernel_kind,
+    )
+    engine.env_kpad = je.env_kpad
+    model = SgprModel(engine)
+    for x in jmodel.X:
+        env = InducingEnv.from_arrays(x.number, np.array(x.rvec),
+                                      np.array(x.numbers))
+        env.desc = None if x.desc is None else np.array(x.desc, dtype=np.float64)
+        env.lone = bool(x.lone)
+        model.X.append(env)
+    for rec in jmodel.data:
+        s = rec.system
+        system = System(numbers=np.array(s.numbers),
+                        positions=np.array(s.positions),
+                        cell=np.array(s.cell), pbc=np.array(s.pbc),
+                        velocities=np.array(s.get_velocities()),
+                        masses=np.array(s.get_masses()))
+        r = DataRecord(system=system, e=float(rec.e), f=np.array(rec.f),
+                       s=np.array(rec.s), natoms=int(rec.natoms))
+        r.cfg = engine.make_config(system)
+        model.data.append(r)
+    for name in ("M", "Ke", "Kf", "Kv", "mu", "choli"):
+        setattr(model, name, np.array(getattr(jmodel, name), dtype=np.float64))
+    model.ridge = float(jmodel.ridge)
+    model.noise_state = {k: float(v) for k, v in jmodel.noise_state.items()}
+    model.scaled_noise = {k: float(v) for k, v in jmodel.scaled_noise.items()}
+    model.mean_weights = {int(k): float(v) for k, v in jmodel.mean_weights.items()}
+    model.vscale = {int(k): float(v) for k, v in jmodel.vscale.items()}
+    model.indu_counts = {int(k): int(v)
+                         for k, v in getattr(jmodel, "indu_counts", {}).items()}
+    model.stats = None if jmodel.stats is None else dict(jmodel.stats)
+    model.fast_trial_min_m = jmodel.fast_trial_min_m
+    return model

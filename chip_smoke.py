@@ -22,20 +22,39 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    folder>, calculator=None, skin=1.2)``: Langevin 300 K, 2 fs, friction
    0.02, chunk 100 (the main path, with every launch counter read around
    it), then 1000 NVE steps for the energy drift.
-5. Timings: steps/s of phase 4; each kernel's device time beside its
-   plain version's and its bound at three shapes (the MD bucket of phase
-   4, the 10,192-atom snapshot, the 4-species snapshot); a profiler
-   breakdown of the MD step.
+5. On-the-fly learning (the second main path): the OTF flagship of
+   ``bench.py`` (``measure_otf``) on the port
+   (``autoforce_tpu_torch.tools.otf_bench``): the 1024-atom ordered
+   4-species LGPS-like crystal learns from the Lennard-Jones mixture oracle
+   during ``DeviceMD`` (400 K, 2 fs, friction 0.05, chunk 50) with the
+   uncertainty trip armed, model from seed (lmax = nmax = 3, rc = 6 A,
+   skin 1.2, ediff = 2 kcal/mol, max_inducing 1024): growth, production
+   with learning on, then frozen MD (at least ten chunks), growth and
+   production each under a wall cap (``OTF_CAPS``).  Fails
+   unless the learned forces are within 0.15 eV/A (MAE) of the oracle's,
+   both kernels launched while learning, and positions stayed finite.
+   Then, on the learned model: ``kernel_block`` in float32 (the kernels)
+   against float64 (the plain versions) on the card, both kernels against
+   their plain versions at the learning path's shapes, and the device time
+   per call of ``kernel_block`` and ``kernel_cols_multi``.
+6. Timings: steps/s of phase 4; each kernel's device time beside its
+   plain version's and its bound at the timing shapes (the MD bucket of
+   phase 4, the 10,192-atom snapshot, the 4-species snapshot, and the
+   learning path's staging and kernel_block rows); a profiler breakdown
+   of the MD step.
 
-The line before the last is one JSON object with every kernel's numbers;
-the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with every kernel's numbers
+(launches split by path: serving MD and OTF learning); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
+import tempfile
 import time
 import traceback
 
@@ -49,6 +68,23 @@ SKIN = 1.2
 # typical one.  Relative to the largest magnitude of the result.
 F32_REL_TOL = 1e-5
 F64_ABS_TOL = 1e-10
+# kernel_block, float32 through the kernels against float64 through the
+# plain versions, relative to the largest value of each block.  Ke sums
+# (p . x)^4 over the atoms: a float32 descriptor carries ~sqrt(K) eps
+# ~ 1e-6 relative error (K ~ 80 live slots), the 4th power makes it ~4e-6;
+# 1e-5 leaves a factor 2.5.  Kf and Kv go through the power spectrum's
+# backward and the backward kernel, each held to 1e-5 of its largest value
+# on its own (F32_REL_TOL), and each force row sums ~K slot terms of both
+# signs, so 10x that.
+KB_KE_TOL = 1e-5
+KB_KF_TOL = 1e-4
+# the OTF phase's stages and caps: the flagship's sizes, thresholds and
+# step counts (bench.py measure_otf), with wall caps that keep the whole
+# script near 10 minutes, well inside its time limit: growth ends by
+# m >= 512 in under a minute on an H100, production (about 0.5 steps/s
+# while the model still grows) gets 6 minutes
+OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
+                prod_wall_cap=360.0)
 
 
 def log(*a):
@@ -278,7 +314,8 @@ def phase_md(model, card):
 
     sk.soap_coeff_fwd.launches = 0
     sk.soap_coeff_bwd.launches = 0
-    calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=SKIN)
+    calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=SKIN,
+                            logfile=None, pckl=None, tape=None)
     system = sb.bench_system()
     system.calc = calc
     maxwell_boltzmann_velocities(system, 300, seed=3)
@@ -311,7 +348,8 @@ def phase_md(model, card):
     # NVE energy conservation (bench.accuracy_gate)
     s = sb.bench_system()
     maxwell_boltzmann_velocities(s, 300, seed=11)
-    calc2 = ActiveCalculator(covariance=model, calculator=None, skin=SKIN)
+    calc2 = ActiveCalculator(covariance=model, calculator=None, skin=SKIN,
+                             logfile=None, pckl=None, tape=None)
     s.calc = calc2
 
     def etot():
@@ -331,6 +369,186 @@ def phase_md(model, card):
     if not drift < 1e-3:
         raise AssertionError("NVE drift above the bar")
     return rates, launches, drift, md_inputs, dyn
+
+
+def _launch_counts():
+    from autoforce_tpu_torch.descriptor import soap_kernels as sk
+
+    return {"soap_coeff_fwd": sk.soap_coeff_fwd.launches,
+            "soap_coeff_bwd": sk.soap_coeff_bwd.launches}
+
+
+def _reset_launches():
+    from autoforce_tpu_torch.descriptor import soap_kernels as sk
+
+    sk.soap_coeff_fwd.launches = 0
+    sk.soap_coeff_bwd.launches = 0
+
+
+def phase_otf(card):
+    """The OTF learning path with the launch counters read around each
+    stage, and a host profile (cProfile) of the growth stage.  Returns
+    (numbers, calculator, launches while learning)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    from autoforce_tpu_torch.tools import otf_bench as ob
+
+    by_stage = {}
+    current = []
+    prof = cProfile.Profile()
+
+    def on_stage(name):
+        if current:
+            by_stage[current[-1]] = _launch_counts()
+        if name == "grow":
+            prof.enable()
+        elif current and current[-1] == "grow":
+            prof.disable()
+        current.append(name)
+        _reset_launches()
+
+    out, calc = ob.measure_otf(device="cuda", dtype=torch.float32,
+                               on_stage=on_stage, **OTF_CAPS)
+    torch.cuda.synchronize()
+    by_stage[current[-1]] = _launch_counts()
+    learning = {k: by_stage["grow"][k] + by_stage["prod"][k]
+                for k in by_stage["grow"]}
+    g = out["grow"]
+    log(f"OTF [{card}]: {out['natoms']} atoms, {out['nspecies']} species; "
+        f"growth {g['steps']} steps in {g['wall_s']:.1f} s, ended by "
+        f"{g['exit']} at m = {g['m_at_exit']} ({g['fp_calls']} oracle calls, "
+        f"{g['updates']} updates); production {out['prod_steps']} steps in "
+        f"{out['prod_wall_s']:.1f} s, ended by {out['prod_exit']}, adding "
+        f"{out['prod_added_inducing']} inducing environments")
+    log(f"OTF [{card}]: steps/s including learning "
+        f"{out['steps_per_sec_incl_learning']:.4f}, frozen "
+        f"{out['frozen_steps_per_sec']:.4f} (over {out['frozen_steps']} steps), "
+        f"ratio "
+        f"{out['learning_overhead_x']:.2f}; fp_calls {out['fp_calls']}, "
+        f"updates {out['updates']} (production: {out['prod_fp_calls']}, "
+        f"{out['prod_updates']}); final (ndata, m) = ({out['final_ndata']}, "
+        f"{out['final_m']}); mcap growths {out['mcap_growth']}, kpad growths "
+        f"{out['kpad_growth']}")
+    fr = out["prod_wall_fracs"]
+    log("OTF production wall by phase_wall: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in fr.items()))
+    text = io.StringIO()
+    pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(14)
+    log("OTF growth stage, host profile (cProfile, self time):")
+    for line in text.getvalue().splitlines():
+        if line.strip() and not line.startswith(("   Ordered", "   List")):
+            log("  " + line.rstrip()[:150])
+    log(f"OTF accuracy: force MAE vs the oracle {out['f_mae_vs_oracle']:.5f} "
+        f"eV/A (bar 0.15), energy error {out['e_err_per_atom_vs_oracle']:.3e} "
+        f"eV/atom; launches by stage {by_stage}")
+    if not out["positions_finite"]:
+        raise AssertionError("OTF MD produced non-finite positions")
+    if not out["f_mae_vs_oracle"] <= ob.OTF_F_MAE_BOUND:
+        raise AssertionError("OTF force MAE above the 0.15 eV/A bar")
+    for name, c in learning.items():
+        if c == 0:
+            raise AssertionError(f"{name} never launched while learning")
+    print(json.dumps({"otf": out}))
+    return out, calc, learning
+
+
+@contextlib.contextmanager
+def _plain_route():
+    """The engine's kernel calls go to the plain versions (also on a CUDA
+    tensor), for the float64 reference of kernel_block."""
+    import autoforce_tpu_torch.engine as engine_mod
+    from autoforce_tpu_torch.descriptor import soap_kernels as sk
+
+    saved = engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd
+    engine_mod.soap_coeff_fwd = sk.soap_coeff_fwd_plain
+    engine_mod.soap_coeff_bwd = sk.soap_coeff_bwd_plain
+    try:
+        yield
+    finally:
+        engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd = saved
+
+
+def phase_otf_columns(calc, card):
+    """On the learned model: kernel_block float32 (kernels) against float64
+    (plain versions), and the device time per call of kernel_block and
+    kernel_cols_multi at the flagship shapes.  Returns the kernel inputs of
+    the learning path (staging rows, a data record's rows)."""
+    import torch
+
+    from autoforce_tpu_torch.engine import _env_rvec, kernel_block_fn
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    model, eng = calc.model, calc.engine
+    ma = model.full_model_arrays()
+    rec = model.data[-1]
+    cfg = rec.cfg
+    n = rec.natoms
+    ke, kf, kv = eng.kernel_block(cfg, ma)
+    f64 = torch.float64
+    cfg64 = cfg._replace(positions=cfg.positions.to(f64), cell=cfg.cell.to(f64))
+    with _plain_route():
+        ke64, kf64, kv64 = kernel_block_fn(cfg64, ma, eng.radii_table().to(f64),
+                                           eng.params, eng.exponent)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, tol in (("Ke", ke, ke64, KB_KE_TOL), ("Kf", kf[:n], kf64[:n], KB_KF_TOL),
+                            ("Kv", kv, kv64, KB_KF_TOL)):
+        scale = b.abs().max().item()
+        err = (a.to(f64) - b).abs().max().item()
+        errs[name] = err / scale
+        log(f"kernel_block float32 (kernels) vs float64 (plain), record of "
+            f"{n} atoms, m = {model.m}: {name} max abs err {err:.3e}, relative "
+            f"to the largest |{name}| {scale:.3e}: {err / scale:.3e} (tol {tol:g})")
+        if not err <= tol * scale:
+            raise AssertionError(f"kernel_block {name}: float32 disagrees")
+
+    # device time per call at the flagship shapes
+    same = [r.cfg for r in model.data
+            if r.cfg.positions.shape == cfg.positions.shape
+            and r.cfg.nbr_idx.shape == cfg.nbr_idx.shape][:4]
+    xs = ma.X_desc[:8]
+    nums = ma.X_num[:8].cpu().numpy()
+    lones = ma.X_lone[:8]
+
+    def block():
+        return eng.kernel_block(cfg, ma)
+
+    def cols():
+        return eng.kernel_cols_multi(same, xs, nums, lones)
+
+    timings = {}
+    for name, fn, shape in (
+            ("kernel_block", block, f"N={cfg.npad} K={cfg.nbr_idx.shape[1]} "
+                                    f"m={model.m} (64 columns per backward launch)"),
+            ("kernel_cols_multi", cols, f"8 envs x {len(same)} records of "
+                                        f"N={cfg.npad} K={cfg.nbr_idx.shape[1]}")):
+        _reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        per_call = _launch_counts()
+        dev = sb.device_ms(fn, 5)
+        soap = sb.device_ms(fn, 5, "soap_")
+        wall = sb.cuda_ms(fn, 5)
+        timings[name] = {"shape": shape, "device_ms": dev, "soap_kernels_ms": soap,
+                         "call_ms": wall, "launches_per_call": per_call}
+        log(f"{name} [{card}]: {shape}: device {dev} ms per call, of which "
+            f"the two SOAP kernels {soap} ms; elapsed {wall:.3f} ms per call; "
+            f"kernel launches per call {per_call}")
+
+    envs = eng.make_envs([(x.rvec, x.numbers) for x in model.X[:256]],
+                         dtype=eng.model_dtype)
+    staging = (envs.rvec.contiguous(), envs.sidx, envs.mask,
+               eng.radii_table().to(eng.model_dtype))
+    with torch.no_grad():
+        rvec = _env_rvec(cfg.positions, cfg.cell, cfg).contiguous()
+    record = (rvec, cfg.nbr_sidx, cfg.nbr_mask & cfg.atom_mask[:, None],
+              eng.radii_table())
+    return errs, timings, {"otf_staging": (eng.params, staging),
+                           "otf_record": (eng.params, record)}
 
 
 def phase_profile(dyn, ms_per_step, card):
@@ -384,7 +602,8 @@ def phase_profile(dyn, ms_per_step, card):
 
 def phase_timings(cases, worst, launches, card):
     """Each kernel's device time beside its plain version's and its bound
-    at every timing shape; the MD bucket's numbers are the row's own."""
+    at every timing shape; the MD bucket's numbers are the row's own.
+    ``launches``: path -> kernel -> launches on that path's run."""
     import torch
 
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
@@ -440,7 +659,9 @@ def phase_timings(cases, worst, launches, card):
             "name": name, "route": "cuda",
             "source": "autoforce_tpu_torch/csrc/soap_coeff.cu",
             "replaces": f"autoforce_tpu/descriptor/pallas_soap.py:{line}",
-            "launches": launches[name], "max_abs_err": worst["md_bucket"][w],
+            "launches": sum(by[name] for by in launches.values()),
+            "launches_by_path": {path: by[name] for path, by in launches.items()},
+            "max_abs_err": worst["md_bucket"][w],
             "ms": md["ms"], "plain_ms": md["plain_ms"], "bound_ms": md["bound_ms"],
             "bound_by": md["bound_by"], "library_ms": None, "shapes": rows[name],
         })
@@ -461,6 +682,18 @@ def main():
               "(autoforce_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    # side files of the calculators (logs, uncertain frames) land in a
+    # scratch directory, not in the checkout, and go with it
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            return run_phases(torch)
+        finally:
+            os.chdir(cwd)
+
+
+def run_phases(torch):
     from autoforce_tpu_torch.io.model_io import load_model
     from autoforce_tpu_torch.tools import soap_bench as sb
 
@@ -490,11 +723,27 @@ def main():
     if md_inputs[0].shape[1] != k_md:
         log(f"note: MD bucket K={md_inputs[0].shape[1]} (phase 2 used {k_md})")
     timing["md_bucket"] = (eng.params, md_inputs)
-    rows = phase_timings(timing, worst, launches, card)
+    otf, calc, otf_launches = phase_otf(card)
+    kb_errs, col_times, otf_inputs = phase_otf_columns(calc, card)
+    worst.update(phase_kernels({
+        "otf_staging": otf_inputs["otf_staging"] + ((torch.float64,),),
+        "otf_record": otf_inputs["otf_record"] + ((torch.float32,),),
+    }))
+    params, (rvec, sidx, mask, radii) = otf_inputs["otf_record"]
+    timing.update(otf_inputs)
+    # the rows of one backward launch of kernel_block (64 columns)
+    timing["otf_block_rows"] = (params, (rvec.repeat(64, 1, 1), sidx.repeat(64, 1),
+                                         mask.repeat(64, 1), radii))
+    del calc
+    rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches},
+                         card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
     log(f"summary: {len(md_inputs[0])}-atom Cu Langevin MD median "
-        f"{rates[1]:.1f} steps/s [{card}]")
+        f"{rates[1]:.1f} steps/s [{card}]; OTF {otf['natoms']}-atom "
+        f"{otf['steps_per_sec_incl_learning']:.4f} steps/s including learning, "
+        f"force MAE {otf['f_mae_vs_oracle']:.4f} eV/A; kernel_block float32 "
+        f"relative errors {kb_errs}; column timings {json.dumps(col_times)}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -156,6 +156,7 @@ def test_calculator_matches_jax_calculator():
     js = small_cu(reps=(2, 2, 2), seed=4)
     js.calc = jcalc
     calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=0.5,
+                            logfile=None, pckl=None, tape=None,
                             device="cpu", dtype=torch.float64)
     ts = bulk_fcc("Cu", 3.6).repeat((2, 2, 2))
     ts.rattle(0.05, seed=4)
@@ -170,8 +171,14 @@ def test_calculator_matches_jax_calculator():
 
 
 def test_calculator_refuses_an_oracle():
-    with pytest.raises(NotImplementedError):
-        ActiveCalculator(covariance=MODEL, calculator=object(), device="cpu")
+    """An oracle must be a calculator; a real one makes the calculator
+    active (on-the-fly learning)."""
+    from autoforce_tpu_torch.calculator.oracles import LennardJones
+
+    kw = dict(logfile=None, pckl=None, tape=None, device="cpu")
+    with pytest.raises(TypeError):
+        ActiveCalculator(covariance=MODEL, calculator=object(), **kw)
+    assert ActiveCalculator(covariance=MODEL, calculator=LennardJones(), **kw).active
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -206,7 +206,8 @@ def test_device_md_runs_through_the_kernels(cuda):
     from autoforce_tpu_torch.md.device_md import DeviceMD
     from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
 
-    calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=1.2)
+    calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=1.2,
+                            logfile=None, pckl=None, tape=None)
     s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
     s.rattle(0.05, seed=1)
     s.calc = calc
@@ -222,3 +223,78 @@ def test_device_md_runs_through_the_kernels(cuda):
     assert sk.soap_coeff_fwd.launches >= 60 and sk.soap_coeff_bwd.launches >= 60
     assert np.isfinite(s.positions).all()
     assert abs(e1 - e0) / len(s) < 1e-3
+
+
+@pytest.fixture
+def learned(cuda):
+    """A small model learned on the card from the LJ oracle: 72 atoms (not
+    a multiple of the 16-atom padding), three learning steps, float64."""
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.oracles import LennardJones
+    from autoforce_tpu_torch.system import bulk_fcc
+
+    calc = ActiveCalculator(
+        covariance=None, calculator=LennardJones(epsilon=0.15, sigma=2.3, rc=4.0),
+        logfile=None, pckl=None, tape=None,
+        kernel_kw=dict(cutoff=4.0, lmax=3, nmax=3), ediff=0.005, fdiff=0.02,
+        device=cuda, dtype=torch.float64)
+    s = bulk_fcc("Cu", 3.6).repeat((3, 3, 2))
+    for k in range(3):
+        t = s.copy()
+        t.rattle(0.1, seed=10 + k)
+        calc.calculate(t)
+    assert calc.model.m > 8 and calc.model.ndata >= 1
+    return calc
+
+
+def plain_route(monkeypatch):
+    """The engine's kernel calls go to the plain versions."""
+    import autoforce_tpu_torch.engine as engine_mod
+
+    monkeypatch.setattr(engine_mod, "soap_coeff_fwd", sk.soap_coeff_fwd_plain)
+    monkeypatch.setattr(engine_mod, "soap_coeff_bwd", sk.soap_coeff_bwd_plain)
+
+
+def close(got, ref, tol):
+    for g, r in zip(got, ref):
+        scale = r.abs().max().item()
+        assert (g.double() - r).abs().max().item() <= tol * max(scale, 1e-300)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_block_kernel_route_matches_plain(learned, monkeypatch, dtype):
+    eng, model = learned.engine, learned.model
+    ma = model.full_model_arrays()
+    cfg64 = model.data[-1].cfg
+    # batch sizes that do not divide m: a partial last column chunk
+    bs = 7 if model.m % 7 else 5
+    sk.soap_coeff_fwd.launches = 0
+    sk.soap_coeff_bwd.launches = 0
+    cfg = cfg64._replace(positions=cfg64.positions.to(getattr(torch, dtype)),
+                         cell=cfg64.cell.to(getattr(torch, dtype)))
+    from autoforce_tpu_torch.engine import kernel_block_fn
+
+    radii = eng.radii_table().to(getattr(torch, dtype))
+    got = kernel_block_fn(cfg, ma, radii, eng.params, eng.exponent, batch_size=bs)
+    # one forward launch for the record, one backward launch per chunk
+    assert sk.soap_coeff_fwd.launches == 1
+    assert sk.soap_coeff_bwd.launches == -(-model.m // bs)
+    plain_route(monkeypatch)
+    ref = kernel_block_fn(cfg64, ma, eng.radii_table(), eng.params, eng.exponent,
+                          batch_size=bs)
+    close(got, ref, 1e-10 if dtype == "float64" else 1e-4)
+
+
+def test_kernel_cols_multi_kernel_route_matches_plain(learned, monkeypatch):
+    eng, model = learned.engine, learned.model
+    ma = model.full_model_arrays()
+    cfg = model.data[-1].cfg
+    cfgs = [cfg, cfg._replace(positions=cfg.positions + 0.01)]
+    args = (cfgs, ma.X_desc[:3], ma.X_num[:3].cpu().numpy(), ma.X_lone[:3])
+    sk.soap_coeff_fwd.launches = 0
+    sk.soap_coeff_bwd.launches = 0
+    got = eng.kernel_cols_multi(*args)
+    assert sk.soap_coeff_fwd.launches == 1 and sk.soap_coeff_bwd.launches == 1
+    plain_route(monkeypatch)
+    ref = eng.kernel_cols_multi(*args)
+    close(got, ref, 1e-10)

@@ -240,6 +240,7 @@ def test_device_md_nve_matches_jax(model_folder, in_loop, monkeypatch):
                      **kw)
     jd.run(60)
     calc = ActiveCalculator(covariance=model_folder, calculator=None, skin=SKIN,
+                            logfile=None, pckl=None, tape=None,
                             device="cpu", dtype=torch.float64)
     ts = bulk_fcc("Cu", 3.6).repeat((3, 3, 3))
     ts.rattle(0.05, seed=1)
@@ -257,6 +258,7 @@ def test_device_md_nve_matches_jax(model_folder, in_loop, monkeypatch):
 
 def langevin_run(folder, seed, chunk, steps=20, temperature=300, friction=0.02):
     calc = ActiveCalculator(covariance=folder, calculator=None, skin=SKIN,
+                            logfile=None, pckl=None, tape=None,
                             device="cpu", dtype=torch.float64)
     s = bulk_fcc("Cu", 3.6).repeat((3, 3, 3))
     s.rattle(0.05, seed=1)

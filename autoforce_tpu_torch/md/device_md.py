@@ -19,15 +19,21 @@ forces are recomputed with it, and stepping resumes — the same state the
 JAX loop's in-loop ``lax.cond`` rebuild produces, at one host read per
 breach instead of a rebuild on every step.
 
-Integrators: velocity Verlet (NVE) and BAOAB Langevin (NVT).  The Langevin
-noise of global step ``t`` comes from a ``torch.Generator`` seeded with
-``(seed, t)``, so a seeded run is reproducible however far the host ran
-ahead of the device.  It cannot reproduce ``jax.random``'s numbers.
+Integrators: velocity Verlet (NVE), BAOAB Langevin and a Nose-Hoover
+chain (NVT).  The Langevin noise of global step ``t`` comes from a
+``torch.Generator`` seeded with ``(seed, t)``, so a seeded run is
+reproducible however far the host ran ahead of the device.  It cannot
+reproduce ``jax.random``'s numbers.
+
+:func:`drive` is the loop machinery shared by every device driver of the
+port (this module, md/device_npt.py, opt/device_fire.py,
+opt/device_neb.py).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 
 import numpy as np
@@ -36,6 +42,45 @@ import torch
 from .. import units
 from ..engine import ConfigArrays, ModelArrays, _total_cov, device_fetch
 from ..kernels import covloss_beta
+
+
+_W3 = 1.0 / (2.0 - 2.0 ** (1.0 / 3.0))
+_SY3 = (_W3, 1.0 - 2.0 * _W3, _W3)
+
+
+def _nhc_half(KE2, vxi, xi, Q, kT, dof, dt, nc=2):
+    """Nose-Hoover chain half-step (M = 3, Suzuki-Yoshida; the exact math
+    of md/nose_hoover.NHChain.half_step with its loops unrolled).  Chains
+    may be stacked on leading axes: ``KE2``/``dof`` (...), ``vxi``, ``xi``
+    and ``Q`` (..., 3), so the particle and cell chains of the NPT step
+    share every elementwise launch.  Returns (velocity scale, KE2, vxi,
+    xi)."""
+    v = [vxi[..., 0], vxi[..., 1], vxi[..., 2]]
+    x = [xi[..., 0], xi[..., 1], xi[..., 2]]
+    q = [Q[..., 0], Q[..., 1], Q[..., 2]]
+
+    def force(j):
+        if j == 0:
+            return (KE2 - dof * kT) / q[0]
+        return (q[0] * v[0] ** 2 - kT) / q[1]
+
+    scale = torch.ones_like(KE2)
+    for _ in range(nc):
+        for w in _SY3:
+            wdt = w * dt / nc  # see md/nose_hoover.py NHChain.half_step
+            v[2] = v[2] + 0.25 * wdt * (q[1] * v[1] ** 2 - kT) / q[2]
+            for j in (1, 0):
+                ef = torch.exp(-0.125 * wdt * v[j + 1])
+                v[j] = (v[j] * ef + 0.25 * wdt * force(j)) * ef
+            sc = torch.exp(-0.5 * wdt * v[0])
+            scale = scale * sc
+            KE2 = KE2 * sc * sc
+            x = [x[j] + 0.5 * wdt * v[j] for j in range(3)]
+            for j in (0, 1):
+                ef = torch.exp(-0.125 * wdt * v[j + 1])
+                v[j] = (v[j] * ef + 0.25 * wdt * force(j)) * ef
+            v[2] = v[2] + 0.25 * wdt * (q[1] * v[1] ** 2 - kT) / q[2]
+    return scale, KE2, torch.stack(v, -1), torch.stack(x, -1)
 
 
 def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
@@ -52,14 +97,19 @@ def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
         e = (cov @ model.mu).sum()
         (g,) = torch.autograd.grad(e, p)
     f = -g * cfg.atom_mask[:, None]
-    if check_beta:
-        beta = covloss_beta(model.choli, cov.detach(), vscale_atom,
-                            model.m_mask, alpha=alpha)
-        beta_max = torch.where(cfg.atom_mask, beta,
-                               torch.full_like(beta, -math.inf)).max()
-    else:
-        beta_max = torch.zeros((), dtype=pos.dtype, device=pos.device)
-    return e.detach(), f, beta_max
+    return e.detach(), f, _beta_max(cov.detach(), cfg, model, vscale_atom,
+                                    alpha, check_beta, pos)
+
+
+def _beta_max(cov, cfg, model, vscale_atom, alpha, check_beta, pos):
+    """Largest per-atom uncertainty of a configuration (0 when the trip
+    is off)."""
+    if not check_beta:
+        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+    beta = covloss_beta(model.choli, cov, vscale_atom, model.m_mask,
+                        alpha=alpha)
+    return torch.where(cfg.atom_mask, beta,
+                       torch.full_like(beta, -math.inf)).max()
 
 
 def _graft(cfg, tbl):
@@ -73,9 +123,11 @@ def _graft(cfg, tbl):
 def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok):
     """In-loop rebuild plumbing: (cfg_with, tbl0, rebuild_fn).
     ``cfg_with(tbl)`` grafts a neighbor-table tuple onto ``cfg``; ``tbl0``
-    is the incoming table; ``rebuild_fn(pos) -> (tbl, ok)`` rebuilds it
-    from device positions (ok=False on bucket overflow, int8 offset
-    overflow or asymmetry — the host path then takes over)."""
+    is the incoming table; ``rebuild_fn(pos, cell=None) -> (tbl, ok)``
+    rebuilds it from device positions under ``cell`` (the moving cell of
+    the NPT and variable-cell FIRE loops; ``cfg.cell`` by default);
+    ok=False on bucket overflow, int8 offset overflow or asymmetry — the
+    host path then takes over."""
     use_rev = cfg.nbr_rev is not None
 
     def cfg_with(tbl):
@@ -89,9 +141,10 @@ def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok):
     kpad = cfg.nbr_idx.shape[1]
     off_dtype = cfg.nbr_off.dtype
 
-    def rebuild_fn(pos):
+    def rebuild_fn(pos, cell=None):
         idx, off, mask, kmax, off_over = device_neighbor_table(
-            pos, cfg.cell, cfg.atom_mask, rebuild_cut, kpad
+            pos, cfg.cell if cell is None else cell, cfg.atom_mask,
+            rebuild_cut, kpad
         )
         off = off.to(off_dtype)
         sx = sidx_atom[idx.long()]
@@ -155,6 +208,109 @@ class _FlagWatch:
         return False
 
 
+@contextlib.contextmanager
+def host_read():
+    """A documented host read inside a device loop (the breach read that
+    precedes an in-loop table rebuild): CUDA's sync debug mode, which
+    ``chip_smoke.py`` turns on around one chunk of each driver to prove
+    that the steps themselves never wait for the card, is lifted here."""
+    if not torch.cuda.is_available():
+        yield
+        return
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+def _go(nsteps, beta_thresh=None, fmax_target=None):
+    """The loop condition of a device driver on its state dict: no
+    unserviced skin breach (``ok``), steps left, and where armed no
+    uncertainty trip (``beta``) and no convergence (``fmax``)."""
+
+    def go(st):
+        g = st["ok"] & (st["i"] < nsteps)
+        if beta_thresh is not None:
+            g = g & (st["beta"] < beta_thresh)
+        if fmax_target is not None:
+            g = g & (st["fmax"] >= fmax_target)
+        return g
+
+    return go
+
+
+def drive(state, step, go, nsteps, rebuild=None):
+    """The eager counterpart of the JAX drivers' ``lax.while_loop``.
+
+    ``state`` is a dict of device tensors with ``i`` (0-d int64, steps
+    done) and ``ok`` (0-d bool, no unserviced skin breach);
+    ``step(state, it) -> dict`` gives the body's new values for iteration
+    ``it``, each committed only where ``go(state)`` held before the step,
+    so the state that comes out is that of the step on which the JAX loop
+    stops, however far the host ran ahead.  The host stops issuing steps
+    once a :class:`_FlagWatch` event reports the flag down, and never
+    waits for the card on the way.
+
+    ``rebuild(state) -> dict``, where given, serves a skin breach: after a
+    run of steps ended with ``ok`` down, one host read (``host_read``)
+    finds out whether a breach ended it; the table is then rebuilt at the
+    breached state and the forces recomputed with it — what the JAX
+    loop's in-loop ``lax.cond`` rebuild yields — and stepping resumes.
+    ``ok`` still down with no step since the last rebuild means that the
+    rebuild failed: the loop ends and the host path takes over."""
+    dev = state["i"].device
+    it = 0  # iterations issued: committed steps are a prefix of them
+    rebuilt_at = 0  # committed-step count of the last rebuild
+    while True:
+        watch = _FlagWatch(dev, nsteps + 1)
+        active = go(state)
+        watch.push(0, active)
+        while it < nsteps:
+            if watch.dropped():
+                break
+            new = step(state, it)
+            for k, v in new.items():
+                state[k] = _where(active, v, state[k])
+            state["i"] = state["i"] + active.to(state["i"].dtype)
+            active = go(state)
+            it += 1
+            watch.push(it, active)
+        if rebuild is None:
+            break
+        with host_read():
+            ok_h, i_h = device_fetch(state["ok"], state["i"].to(torch.int32))
+            if bool(ok_h) or int(i_h) == rebuilt_at:
+                break
+            state.update(rebuild(state))
+        rebuilt_at = it = int(i_h)
+        if it >= nsteps:
+            break
+    return state
+
+
+def skin_table(amask, skin_half, rebuild_fn=None):
+    """(breach, with_rebuild) of a loop under a fixed cell.
+    ``breach(pos, p0)``: an atom moved half the skin since the table's
+    build at ``p0``; ``with_rebuild(pos, tbl, p0)``: the table, origin and
+    ``ok`` after a (masked) rebuild at ``pos`` — one that is not due (no
+    breach) or fails keeps the old table and origin, and drops ``ok``
+    only when it failed."""
+
+    def breach(pos, p0):
+        return ((pos - p0) ** 2 * amask).sum(-1).max() >= skin_half**2
+
+    def with_rebuild(pos, tbl, p0):
+        hit = breach(pos, p0)
+        new_tbl, rok = rebuild_fn(pos)
+        take = hit & rok
+        return dict(tbl=_where(take, new_tbl, tbl),
+                    pos0=torch.where(take, pos, p0), ok=~hit | rok)
+
+    return breach, with_rebuild
+
+
 def _noise(gen, shape, dtype, seed, step):
     """Standard normal noise of global step ``step`` of stream ``seed``
     (``gen``: a generator on the target device, reseeded here)."""
@@ -164,14 +320,16 @@ def _noise(gen, shape, dtype, seed, step):
 
 def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
                 friction, skin_half, beta_thresh, nsteps, thermostat,
-                check_beta, seed=0, step0=0, tbl=None, rebuild_fn=None):
+                check_beta, seed=0, step0=0, tbl=None, rebuild_fn=None,
+                nhc=None):
     """The integrator loop.
 
     ``forces_fn(pos, tbl) -> (e, f, beta_max)`` supplies the physics; the
-    loop does velocity-Verlet / BAOAB-Langevin stepping with early exit on
-    a Verlet-skin breach or an uncertainty trip.  ``amask``: (N, 1) atom
-    mask.  Returns (pos, vel, f, e, beta_max, ndone, tbl, pos0) with
-    ``ndone`` a 0-d device tensor.
+    loop does velocity-Verlet / BAOAB-Langevin / NHC stepping with early
+    exit on a Verlet-skin breach or an uncertainty trip.  ``amask``: (N, 1)
+    atom mask; ``nhc``: (Q (3,), dof, vxi (3,), xi (3,)) of the chain
+    (thermostat "nhc").  Returns (pos, vel, f, e, beta_max, ndone, tbl,
+    pos0, vxi, xi) with ``ndone`` a 0-d device tensor.
 
     With ``rebuild_fn`` a skin breach does not end the loop: the table is
     rebuilt from the breached positions (``rebuild_fn(pos) -> (tbl,
@@ -180,8 +338,8 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
     host then grows the bucket).  A failed rebuild keeps the last good
     table and origin.
     """
-    if thermostat not in ("langevin", "none"):
-        raise NotImplementedError(f"thermostat {thermostat!r} is not ported yet")
+    if thermostat not in ("langevin", "nhc", "none"):
+        raise ValueError(f"unknown thermostat {thermostat!r}")
     dev = pos_init.device
     dtype = pos_init.dtype
     c1 = math.exp(-friction * dt)
@@ -189,70 +347,59 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
     half = 0.5 * dt
     gen = torch.Generator(device=dev) if thermostat == "langevin" else None
 
-    def breach(pos, p0):
-        return ((pos - p0) ** 2 * amask).sum(-1).max() >= skin_half**2
+    breach, with_rebuild = skin_table(amask, skin_half, rebuild_fn)
 
-    def go(ok, beta_max, i):
-        g = ok & (i < nsteps)
-        if check_beta:
-            g = g & (beta_max < beta_thresh)
-        return g
+    def ke2(vel):
+        return (masses * vel * vel * amask).sum()
 
-    def with_rebuild(pos, tbl, p0):
-        """Table and origin after a (masked) rebuild at ``pos``: a rebuild
-        that is not due (no breach) or fails keeps the old ones."""
-        hit = breach(pos, p0)
-        new_tbl, rok = rebuild_fn(pos)
-        take = hit & rok
-        return _where(take, new_tbl, tbl), torch.where(take, pos, p0), ~hit | rok
-
-    pos, vel = pos_init, velocities
-    if rebuild_fn is not None:
-        tbl, pos0, ok = with_rebuild(pos, tbl, pos0)
-    else:
-        ok = ~breach(pos, pos0)
-    e, f, beta_max = forces_fn(pos, tbl)
-    i = torch.zeros((), dtype=torch.int64, device=dev)
-    watch = _FlagWatch(dev, nsteps + 1)
-    it = 0  # iterations issued: committed steps are a prefix of them
-    rebuilt_at = 0  # committed-step count of the last rebuild
-    while True:
-        active = go(ok, beta_max, i)
-        watch.push(0, active)
-        while it < nsteps:
-            if watch.dropped():
-                break
+    def step(st, it):
+        pos, vel, f = st["pos"], st["vel"], st["f"]
+        out = {}
+        if thermostat == "nhc":
+            Q, dof = nhc[0], nhc[1]
+            # chain-half, B, drift, B, chain-half (md/nose_hoover.py step)
+            s, _, vxi, xi = _nhc_half(ke2(vel), st["vxi"], st["xi"], Q, kT,
+                                      dof, dt)
+            v = vel * s
+            v = v + half * f / masses
+            p = pos + dt * v
+            e2, f2, b2 = forces_fn(p, st["tbl"])
+            v = v + half * f2 / masses
+            s, _, vxi, xi = _nhc_half(ke2(v), vxi, xi, Q, kT, dof, dt)
+            v = v * s
+            out.update(vxi=vxi, xi=xi)
+        else:
             v = vel + half * f / masses  # B
             p = pos + half * v  # A
             if thermostat == "langevin":
                 noise = _noise(gen, v.shape, dtype, seed, step0 + it)
                 v = c1 * v + c2 * noise  # O
             p = p + half * v  # A
-            e2, f2, b2 = forces_fn(p, tbl)
+            e2, f2, b2 = forces_fn(p, st["tbl"])
             v = v + half * f2 / masses  # B
-            pos, vel = _where(active, p, pos), _where(active, v, vel)
-            e, f = _where(active, e2, e), _where(active, f2, f)
-            beta_max = _where(active, b2, beta_max)
-            i = i + active.to(i.dtype)
-            ok = torch.where(active, ~breach(pos, pos0), ok)
-            active = go(ok, beta_max, i)
-            it += 1
-            watch.push(it, active)
-        if rebuild_fn is None:
-            break
-        # a breach stopped the run: rebuild at the breached positions and
-        # recompute forces with the fresh table (one host read per breach).
-        # ok still down with no step since the last rebuild: it failed.
-        ok_h, i_h = device_fetch(ok, i.to(torch.int32))
-        if bool(ok_h) or int(i_h) == rebuilt_at:
-            break
-        tbl, pos0, ok = with_rebuild(pos, tbl, pos0)
-        e, f, beta_max = forces_fn(pos, tbl)
-        rebuilt_at = it = int(i_h)
-        if it >= nsteps:
-            break
-        watch = _FlagWatch(dev, nsteps + 1)
-    return pos, vel, f, e, beta_max, i, tbl, pos0
+        out.update(pos=p, vel=v, e=e2, f=f2, beta=b2,
+                   ok=~breach(p, st["pos0"]))
+        return out
+
+    def rebuild(st):
+        out = with_rebuild(st["pos"], st["tbl"], st["pos0"])
+        out["e"], out["f"], out["beta"] = forces_fn(st["pos"], out["tbl"])
+        return out
+
+    st = dict(pos=pos_init, vel=velocities, tbl=tbl, pos0=pos0,
+              i=torch.zeros((), dtype=torch.int64, device=dev))
+    if rebuild_fn is not None:
+        st.update(with_rebuild(pos_init, tbl, pos0))
+    else:
+        st["ok"] = ~breach(pos_init, pos0)
+    st["e"], st["f"], st["beta"] = forces_fn(pos_init, st["tbl"])
+    if nhc is not None:
+        st.update(vxi=nhc[2], xi=nhc[3])
+    go = _go(nsteps, beta_thresh if check_beta else None)
+    st = drive(st, step, go, nsteps,
+               rebuild=rebuild if rebuild_fn is not None else None)
+    return (st["pos"], st["vel"], st["f"], st["e"], st["beta"], st["i"],
+            st["tbl"], st["pos0"], st.get("vxi"), st.get("xi"))
 
 
 def md_chunk(
@@ -272,20 +419,25 @@ def md_chunk(
     params=None,
     exponent=4,
     check_beta=True,
-    thermostat="langevin",  # "langevin" | "none"
+    thermostat="langevin",  # "langevin" | "nhc" | "none"
     rebuild=False,  # in-loop neighbor rebuild at skin breaches
     rebuild_cut=None,  # rc + skin (required when rebuild)
     sidx_atom=None,  # (N,) i32 species-table index per atom
     sidx_ok=None,  # (N,) bool: species known to the engine table
     seed=0,  # Langevin noise stream
     step0=0,  # global index of this chunk's first step (noise counter)
+    nhc_Q=None,  # (3,) chain masses (thermostat="nhc")
+    nhc_dof=None,  # 3 * n_real
+    nhc_vxi=None,  # (3,) chain velocities (carried across chunks)
+    nhc_xi=None,  # (3,) chain positions
 ):
     """Run up to ``nsteps`` MD steps on the device; early-exit on a skin
     breach or the uncertainty threshold.
     Returns (pos, vel, f, e, beta_max, ndone) with ``ndone`` a 0-d device
     tensor; with ``rebuild=True`` also (tbl, pos0): the live table tuple
     (idx, off, sidx, mask[, rev]) and its build origin, for chaining into
-    the next chunk."""
+    the next chunk; with ``thermostat="nhc"`` then (nhc_vxi, nhc_xi), the
+    chain state for the next chunk."""
     cfg_with, tbl0, rebuild_fn = _inloop_table(
         cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
     )
@@ -294,18 +446,77 @@ def md_chunk(
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
                             params, exponent, check_beta)
 
+    nhc = None
+    if thermostat == "nhc":
+        nhc = (nhc_Q, float(nhc_dof), nhc_vxi, nhc_xi)
     with torch.no_grad():
         out = _chunk_loop(
             forces_fn, cfg.positions, cfg.atom_mask[:, None], velocities,
             masses, pos0, float(dt), float(kT), float(friction),
             float(skin_half), float(beta_thresh), int(nsteps), thermostat,
             check_beta, seed=seed, step0=step0, tbl=tbl0,
-            rebuild_fn=rebuild_fn,
+            rebuild_fn=rebuild_fn, nhc=nhc,
         )
-    pos, vel, f, e, beta_max, i, tbl, pos0 = out
+    pos, vel, f, e, beta_max, i, tbl, pos0, vxi, xi = out
+    ret = (pos, vel, f, e, beta_max, i)
     if rebuild:
-        return pos, vel, f, e, beta_max, i, tbl, pos0
-    return pos, vel, f, e, beta_max, i
+        ret = ret + (tbl, pos0)
+    if nhc is not None:
+        ret = ret + (vxi, xi)
+    return ret
+
+
+def check_plain_surface(calc, what="DeviceMD"):
+    """The device chunks integrate the plain SGPR surface; a metadynamics
+    bias lives in the host ``calculate`` and would be dropped between
+    chunk boundaries, so it is refused (and not ported yet)."""
+    if getattr(calc, "meta", None) is not None:
+        raise NotImplementedError(
+            f"{what}: metadynamics is not ported yet")
+
+
+def new_chain(calc, system, check_beta):
+    """Device state shared by a chain of chunks of any device driver, from
+    the calculator's current configuration: the config, model arrays,
+    radii, uncertainty scale, masses, the table's build origin and the
+    in-loop rebuild's species tables and cutoff."""
+    eng = calc.engine
+    cfg = calc.cfg
+    dtype, dev = cfg.positions.dtype, cfg.positions.device
+    vs = calc.model.vscale_for(cfg.numbers.cpu().numpy())
+    # unseen species: a huge finite sentinel (the host's inf semantics:
+    # any uncertainty trips sampling) that keeps 0 * inf out of beta
+    vs = np.where(np.isfinite(vs), vs, 1e8)
+    npad = cfg.npad
+    masses = np.ones((npad, 1))
+    masses[: len(system), 0] = system.get_masses()
+    pos0 = np.zeros((npad, 3))
+    pos0[: len(system)] = calc._nlcache._pos
+    sidx = eng.species_index(cfg.numbers.cpu().numpy())
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    return dict(
+        cfg=cfg,
+        ma=calc.model.full_model_arrays(),
+        radii=eng.radii_table(),
+        vs=t(vs),
+        masses=t(masses),
+        pos0=t(pos0),
+        sidx_atom=t(np.maximum(sidx, 0), torch.int32),
+        sidx_ok=t(sidx >= 0, torch.bool),
+        cut=eng.params.rc + calc._nlcache.skin,
+        beta_thresh=calc.ediff if check_beta else np.inf,
+    )
+
+
+def padded_rows(a, npad, like):
+    """Host rows ``a`` zero-padded to ``npad`` rows, as a tensor of
+    ``like``'s type on its device."""
+    out = np.zeros((npad,) + np.shape(a)[1:])
+    out[: len(a)] = a
+    return torch.as_tensor(out, dtype=like.dtype, device=like.device)
 
 
 class DeviceMD:
@@ -314,14 +525,17 @@ class DeviceMD:
     A drop-in fast MD engine for a frozen model.  The chunk stops at the
     exact step on which the uncertainty crosses the calculator's ``ediff``
     when ``check_beta`` is on, and the host then runs the calculator's
-    full ``calculate`` there."""
+    full ``calculate`` there.  Thermostats: BAOAB Langevin, a Nose-Hoover
+    chain (``"nhc"``: M = 3, canonical and deterministic, the device
+    counterpart of md/nose_hoover.NoseHooverNVT; its state is carried
+    across chunks on the card) or none (NVE)."""
 
     def __init__(self, system, calc, dt, temperature_K=None, friction=0.01,
-                 chunk=50, seed=0, check_beta=None, thermostat="auto"):
+                 chunk=50, seed=0, check_beta=None, thermostat="auto",
+                 tdamp=None):
         from ..neighbors_device import device_rebuild_ok
 
-        if getattr(calc, "meta", None) is not None:
-            raise NotImplementedError("metadynamics is not ported yet")
+        check_plain_surface(calc, "DeviceMD")
         self.system = system
         self.calc = calc
         self.dt = float(dt)
@@ -335,9 +549,14 @@ class DeviceMD:
         )
         if thermostat == "auto":
             thermostat = "langevin" if self.kT > 0 else "none"
-        if thermostat not in ("langevin", "none"):
-            raise NotImplementedError(f"thermostat {thermostat!r} is not ported yet")
+        if thermostat not in ("langevin", "nhc", "none"):
+            raise ValueError(f"unknown thermostat {thermostat!r}")
         self.thermostat = thermostat
+        self.tdamp = float(tdamp) if tdamp else 100.0 * self.dt
+        # chain state: host copies, refreshed by each chunk's one read
+        self.nhc_vxi = np.zeros(3)
+        self.nhc_xi = np.zeros(3)
+        self._nhc_dev = None
         # the in-loop device rebuild where the MIC builder holds; otherwise
         # a skin breach ends the chunk and the host rebuilds the table
         self.in_loop_rebuild = device_rebuild_ok(
@@ -349,40 +568,24 @@ class DeviceMD:
     def _new_chain(self):
         """Device state of a chain of chunks, from the calculator's
         current configuration."""
-        calc, system, eng = self.calc, self.system, self.calc.engine
-        model = calc.model
-        cfg = calc.cfg
-        dtype, dev = cfg.positions.dtype, cfg.positions.device
-        ma = model.full_model_arrays()
-        vs = model.vscale_for(cfg.numbers.cpu().numpy())
-        # unseen species: a huge finite sentinel (the host's inf semantics:
-        # any uncertainty trips sampling) that keeps 0 * inf out of beta
-        vs = np.where(np.isfinite(vs), vs, 1e8)
-        npad = cfg.npad
-        vel = np.zeros((npad, 3))
-        vel[: len(system)] = system.get_velocities()
-        masses = np.ones((npad, 1))
-        masses[: len(system), 0] = system.get_masses()
-        pos0 = np.zeros((npad, 3))
-        pos0[: len(system)] = calc._nlcache._pos
-        sidx = eng.species_index(cfg.numbers.cpu().numpy())
+        chain = new_chain(self.calc, self.system, self.check_beta)
+        chain["vel"] = padded_rows(self.system.get_velocities(),
+                                   chain["cfg"].npad, chain["pos0"])
+        return chain
 
-        def t(a, dt=dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
-
-        return dict(
-            cfg=cfg,
-            ma=ma,
-            radii=eng.radii_table(),
-            vs=t(vs),
-            vel=t(vel),
-            masses=t(masses),
-            pos0=t(pos0),
-            sidx_atom=t(np.maximum(sidx, 0), torch.int32),
-            sidx_ok=t(sidx >= 0, torch.bool),
-            cut=eng.params.rc + calc._nlcache.skin,
-            beta_thresh=calc.ediff if self.check_beta else np.inf,
-        )
+    def _nhc_kw(self, like):
+        """The chain's masses, dof and device state for the next chunk."""
+        n = len(self.system)
+        Q = np.full(3, self.kT * self.tdamp**2)
+        Q[0] *= 3.0 * n
+        if self._nhc_dev is None:
+            self._nhc_dev = tuple(
+                torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                for a in (self.nhc_vxi, self.nhc_xi))
+        return dict(nhc_Q=torch.as_tensor(Q, dtype=like.dtype,
+                                          device=like.device),
+                    nhc_dof=3.0 * n, nhc_vxi=self._nhc_dev[0],
+                    nhc_xi=self._nhc_dev[1])
 
     def run(self, steps):
         calc = self.calc
@@ -417,6 +620,8 @@ class DeviceMD:
 
             n = min(self.chunk, steps - done)
             inloop = self.in_loop_rebuild
+            nhc = self.thermostat == "nhc"
+            nhc_kw = self._nhc_kw(chain["pos0"]) if nhc else {}
             out = md_chunk(
                 chain["cfg"], chain["ma"], chain["radii"], chain["vs"],
                 chain["vel"], chain["masses"], chain["pos0"],
@@ -426,16 +631,20 @@ class DeviceMD:
                 check_beta=self.check_beta, thermostat=self.thermostat,
                 rebuild=inloop, rebuild_cut=chain["cut"],
                 sidx_atom=chain["sidx_atom"], sidx_ok=chain["sidx_ok"],
-                seed=self.seed, step0=self.nsteps,
+                seed=self.seed, step0=self.nsteps, **nhc_kw,
             )
+            pos, vel, f, e, beta_max, i = out[:6]
             if inloop:
-                pos, vel, f, e, beta_max, i, tbl, p0 = out
+                tbl, p0 = out[6:8]
                 chain["cfg"] = _graft(chain["cfg"], tbl)
                 chain["pos0"] = p0
+            if nhc:
+                self._nhc_dev = out[-2:]
+                # one host read for every boundary scalar and the chain
+                bm_h, i_h, self.nhc_vxi, self.nhc_xi = device_fetch(
+                    beta_max, i.to(torch.int32), *self._nhc_dev)
             else:
-                pos, vel, f, e, beta_max, i = out
-            # one host read for every boundary scalar
-            bm_h, i_h = device_fetch(beta_max, i.to(torch.int32))
+                bm_h, i_h = device_fetch(beta_max, i.to(torch.int32))
             ndone = int(i_h)
             pos_dev, vel_dev = pos, vel
             # host attention only if the uncertainty tripped (the chunk then
@@ -462,6 +671,7 @@ class DeviceMD:
                         drv = Langevin(system, self.dt, self.kT / units.kB,
                                        self.friction)
                     else:
+                        # NHC / NVE chains stay deterministic: plain Verlet
                         drv = VelocityVerlet(system, self.dt)
                     drv.step()
                     ndone = 1

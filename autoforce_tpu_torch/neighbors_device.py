@@ -39,6 +39,21 @@ def device_rebuild_ok(cell, pbc, cutoff):
     return bool((widths >= 2.0 * cutoff).all())
 
 
+def det3(m):
+    """Determinant of (..., 3, 3) matrices as a triple product."""
+    return (m[..., 0, :] * torch.linalg.cross(m[..., 1, :], m[..., 2, :])).sum(-1)
+
+
+def inv3(m):
+    """Inverse of (..., 3, 3) matrices by the adjugate.  Written out, like
+    :func:`det3`, because ``torch.linalg`` checks for errors or factors on
+    the host, which would make a device step wait for the card."""
+    a, b, c = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    adj = torch.stack([torch.linalg.cross(b, c), torch.linalg.cross(c, a),
+                       torch.linalg.cross(a, b)], dim=-1)
+    return adj / det3(m)[..., None, None]
+
+
 def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
     """Rebuild the padded neighbor table on the device.
 
@@ -58,8 +73,8 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
     N = positions.shape[0]
     dev = positions.device
     dtype = positions.dtype
-    frac = positions @ torch.linalg.inv(cell)  # (N, 3), possibly unwrapped
-    cut2 = torch.as_tensor(cutoff, dtype=dtype, device=dev) ** 2
+    frac = positions @ inv3(cell)  # (N, 3), possibly unwrapped
+    cut2 = cutoff**2  # a float or a 0-d tensor: no host-to-card copy
     rows = torch.arange(N, dtype=torch.int32, device=dev)
     idx_out, off_out, msk_out, counts, overs = [], [], [], [], []
     for lo in range(0, N, block):

@@ -37,20 +37,43 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    against float64 (the plain versions) on the card, both kernels against
    their plain versions at the learning path's shapes, and the device time
    per call of ``kernel_block`` and ``kernel_cols_multi``.
+7. Structure drivers (run right after phase 4; the workloads of
+   ``autoforce_tpu_torch.tools.driver_bench``, the same model and
+   calculator): ``DeviceMD(thermostat="nhc")`` 300 K, 2 fs, tdamp 50 fs,
+   300 warm-up + 300 timed steps, mean temperature within 15 % of 300 K;
+   ``DeviceNPT`` as ``bench.py``'s ``npt_1k`` (isotropic, 0 GPa, pdamp
+   500 fs, 150 + 300 steps) for the rate, then at the model's own pressure
+   on the snapshot 150 isotropic steps (the last 100 timed) and 100
+   flexible steps with ``mask=(1, 1, 0)``: finite, volume within 5 % of
+   the start, the masked strain component unmoved; the anisotropic dE/deps of
+   ``_sgpr_forces_virial`` in float32 (kernels) against float64 (plain
+   versions) within ``STRESS_REL_TOL``; ``DeviceFIRE`` as ``bench.py``'s
+   ``relax_fire_1k`` (150 + 300 iterations), then ``cell=True`` from
+   a = 3.65 A to fmax 0.05 eV/A or 500 iterations, the energy dropping;
+   ``DeviceNEB`` on a 499-atom vacancy hop (end points relaxed by
+   ``DeviceFIRE``, counted as a path of their own; five interior images,
+   climbing image, up to 300 iterations), a finite positive barrier,
+   exactly one launch of each kernel per band evaluation, and the band's
+   stacked float32 energies and forces (the kernels) against each image
+   alone in float64 (the plain versions) within ``BAND_E_TOL`` /
+   ``BAND_F_TOL``; then both kernels against their plain versions at the
+   stacked band's shape, as in phase 2.  Every driver launches both
+   kernels, and its first chunk runs under CUDA's sync debug mode "error"
+   (no host sync inside the steps but the documented breach reads).
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
-   phase 4, the 10,192-atom snapshot, the 4-species snapshot, and the
-   learning path's staging and kernel_block rows); a profiler breakdown
-   of the MD step.
+   phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
+   band's stacked rows, and the learning path's staging and kernel_block
+   rows); a profiler breakdown of the MD step.
 
 The line before the last is one JSON object with every kernel's numbers
-(launches split by path: serving MD and OTF learning); the last line is
+(launches split by path: serving MD, OTF learning and each structure
+driver); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -371,6 +394,296 @@ def phase_md(model, card):
     return rates, launches, drift, md_inputs, dyn
 
 
+def phase_drivers(card):
+    """7. The structure drivers on the bench model at full width (the
+    workloads of ``autoforce_tpu_torch.tools.driver_bench``): NVT with a
+    Nose-Hoover chain, MTK NPT (isotropic, then flexible with a mask), the
+    float32 strain gradient against float64, FIRE (fixed and variable
+    cell) and NEB.  Each driver's launches are counted from 0 around its
+    run, its first chunk runs under CUDA's sync debug mode, and the
+    physical checks of each must hold.  Returns {driver: launches}."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md import device_npt as dnpt
+    from autoforce_tpu_torch.opt import device_fire as dfire
+    from autoforce_tpu_torch.opt import device_neb as dneb
+    from autoforce_tpu_torch.opt.neb import interpolate_images
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    t_phase = time.time()
+    fs = units.fs
+    paths = {}
+    numbers = {}
+
+    def check_probe(name, rec, per_eval=False):
+        """Both kernels launched inside the chunks, the first chunk free of
+        host syncs; returns launches per step (per band evaluation)."""
+        if not rec["sync_checked"]:
+            raise AssertionError(f"{name}: no chunk ran under the sync check")
+        evals = rec["steps"] + (rec["calls"] if per_eval else 0)
+        per = {k: rec[k] / max(evals, 1) for k in ("soap_coeff_fwd",
+                                                    "soap_coeff_bwd")}
+        for k, v in per.items():
+            if rec[k] == 0:
+                raise AssertionError(f"{name}: {k} never launched in a chunk")
+        return per
+
+    def profile(name, run, steps, wall_per_step):
+        kps, us = db.profile_window(run, steps)
+        if kps is None:
+            log(f"{name} profile: no device time seen (not measured)")
+            return None
+        busy = us / (wall_per_step * 1e6)
+        log(f"{name} profile over {steps} steps [{card}]: {kps:.0f} device "
+            f"kernels per step, {us:.1f} us of device time per step, step "
+            f"{wall_per_step * 1e6:.1f} us -> device busy {100 * busy:.1f}%")
+        return dict(kernels_per_step=kps, device_us_per_step=us,
+                    busy_share=busy)
+
+    def close(name):
+        got = db.launches()
+        for k, c in got.items():
+            if c == 0:
+                raise AssertionError(f"{name}: {k} never launched")
+        paths[name] = got
+
+    # 7.1 NVT with the Nose-Hoover chain
+    db.reset_launches()
+    calc = db.serving_calc()
+    s = sb.bench_system()
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 300, seed=3)
+    dyn = dmd.DeviceMD(s, calc, 2 * fs, temperature_K=300, tdamp=50 * fs,
+                       chunk=100, check_beta=False, thermostat="nhc")
+    with db.chunk_probe(dmd, "md_chunk", 5) as rec:
+        dyn.run(300)  # warm-up
+    per = check_probe("nvt_nhc", rec)
+    torch.cuda.synchronize()
+    temps = []
+    t0 = time.time()
+    for _ in range(3):
+        dyn.run(100)
+        temps.append(s.get_temperature())
+    rate = 300 / (time.time() - t0)
+    close("nvt_nhc")
+    t_mean = float(np.mean(temps))
+    log(f"NVT-NHC [{card}]: {len(s)} atoms, {rate:.1f} steps/s over 300 steps "
+        f"(chunk 100), mean T {t_mean:.1f} K (bar 300 +- 15%); kernel launches "
+        f"per step {per}")
+    if not abs(t_mean / 300 - 1) <= 0.15:
+        raise AssertionError("NHC: mean temperature off by more than 15 %")
+    prof = profile("NVT-NHC", lambda: dyn.run(20), 20, 1.0 / rate)
+    # the chain half-step alone (two per NHC step, the particle and cell
+    # chains stacked in NPT) and the flexible cell's batched expm_sym
+    dev = calc.cfg.positions.device
+    chain = (torch.full((), 3.0, device=dev), torch.zeros(3, device=dev),
+             torch.zeros(3, device=dev), torch.ones(3, device=dev))
+    strain = torch.zeros((2, 3, 3), device=dev)
+    parts = {}
+    for name, fn in (
+            ("nhc_half", lambda: dmd._nhc_half(*chain, 0.0259, 3.0, 0.2)),
+            ("expm_sym", lambda: dnpt.expm_sym(strain))):
+        ms = sb.cuda_ms(fn, 200)
+        kernels, _ = db.profile_window(fn, 1)
+        parts[name] = dict(ms=ms, kernels=kernels)
+        log(f"{name} [{card}]: {ms * 1e3:.1f} us per call (elapsed, "
+            f"back to back), {kernels} device kernels per call")
+    numbers["nvt_nhc"] = dict(steps_per_s=rate, mean_T=t_mean,
+                              launches_per_step=per, profile=prof,
+                              parts=parts)
+
+    # 7.2 NPT: bench.py npt_1k (0 GPa) for the rate; the bench model's own
+    # pressure on the snapshot is ~127 GPa (the JAX package gives the same:
+    # its data hold no volume change), so at 0 GPa the barostat expands the
+    # box, and the physical checks run at the snapshot's own pressure:
+    # isotropic, then the flexible cell with a mask
+    db.reset_launches()
+    calc = db.serving_calc()
+    s = sb.bench_system()
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 300, seed=3)
+    p_model = float(-np.mean(s.get_stress()[:3]) / units.GPa)
+    vol0 = s.volume
+    kw = dict(temperature_K=300, tdamp=50 * fs, pdamp=500 * fs, chunk=100,
+              check_beta=False)
+    dyn = dnpt.DeviceNPT(s, calc, 2 * fs, pressure_GPa=0.0, isotropic=True,
+                         **kw)
+    with db.chunk_probe(dnpt, "md_chunk_npt", 6) as rec:
+        dyn.run(150)  # warm-up
+    per = check_probe("npt", rec)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    dyn.run(300)
+    rate = 300 / (time.time() - t0)
+    prof = profile("NPT", lambda: dyn.run(20), 20, 1.0 / rate)
+    dvol_0 = s.volume / vol0 - 1
+    ok_0 = np.isfinite(s.positions).all() and np.isfinite(s.cell).all()
+    s = sb.bench_system()
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 300, seed=3)
+    held = dnpt.DeviceNPT(s, calc, 2 * fs, pressure_GPa=p_model,
+                          isotropic=True, **kw)
+    held.run(50)  # warm-up
+    torch.cuda.synchronize()
+    before = db.launches()["soap_coeff_fwd"]
+    t0 = time.time()
+    held.run(100)
+    rate_held = 100 / (time.time() - t0)
+    held_per = (db.launches()["soap_coeff_fwd"] - before) / 100
+    dvol_iso = s.volume / vol0 - 1
+    cell_iso = np.asarray(s.cell).copy()
+    flex = dnpt.DeviceNPT(s, calc, 2 * fs, pressure_GPa=p_model,
+                          isotropic=False, mask=(1, 1, 0), **kw)
+    t0 = time.time()
+    flex.run(100)
+    rate_flex = 100 / (time.time() - t0)
+    close("npt")
+    cell = np.asarray(s.cell)
+    dvol = s.volume / vol0 - 1
+    moved = float(np.abs(cell[2] - cell_iso[2]).max()
+                  + np.abs(cell[:, 2] - cell_iso[:, 2]).max())
+    log(f"NPT [{card}]: npt_1k (0 GPa) {rate:.1f} steps/s over 300 steps, "
+        f"volume {100 * dvol_0:+.2f} % after 470 steps (the model's pressure "
+        f"on the snapshot is {p_model:.2f} GPa: at 0 GPa the box expands and "
+        f"rebuilds its tables in the loop, {per['soap_coeff_fwd']:.3f} forward "
+        f"launches per warm-up step); at that pressure: isotropic "
+        f"{rate_held:.1f} steps/s over steps 50-150 ({held_per:.3f} forward "
+        f"launches per step), volume {100 * dvol_iso:+.3f} %, then flexible (mask "
+        f"1,1,0) {rate_flex:.1f} steps/s over 100 steps, volume "
+        f"{100 * dvol:+.3f} % of the start (bar 5 %), masked strain moved "
+        f"{moved:.2e} A; kernel launches per step {per}")
+    if not (ok_0 and np.isfinite(s.positions).all()
+            and np.isfinite(cell).all()):
+        raise AssertionError("NPT produced a non-finite state")
+    if not (abs(dvol_iso) <= 0.05 and abs(dvol) <= 0.05):
+        raise AssertionError("NPT: volume moved by more than 5 %")
+    if not moved <= 1e-6:
+        raise AssertionError("NPT: a masked strain component moved")
+    numbers["npt"] = dict(steps_per_s=rate, held_steps_per_s=rate_held,
+                          held_fwd_launches_per_step=held_per,
+                          flex_steps_per_s=rate_flex,
+                          volume_change_0GPa=dvol_0, model_pressure=p_model,
+                          volume_change=dvol, launches_per_step=per,
+                          profile=prof)
+
+    # 7.3 the strain gradient in float32 (kernels) against float64 (plain)
+    err, scale, d64 = db.stress_rel_err(db.serving_calc(), sb.bench_system())
+    log(f"stress: dE/deps float32 (kernels) vs float64 (plain) on the "
+        f"snapshot: max abs err {err:.3e} eV, largest |dE/deps| {scale:.3e} "
+        f"eV, relative {err / scale:.3e} (tol {db.STRESS_REL_TOL:g}); "
+        f"float64 dE/deps diagonal {np.diag(d64)}")
+    if not err <= db.STRESS_REL_TOL * scale:
+        raise AssertionError("float32 strain gradient off its tolerance")
+    numbers["stress_rel_err"] = err / scale
+
+    # 7.4 FIRE (bench.py relax_fire_1k), then the variable cell
+    db.reset_launches()
+    calc = db.serving_calc()
+    s = sb.bench_system()
+    s.calc = calc
+    opt = dfire.DeviceFIRE(s, calc, dt=0.05, chunk=150, check_beta=False)
+    with db.chunk_probe(dfire, "fire_chunk", 9) as rec:
+        opt.run(fmax=1e-12, steps=150)  # warm-up
+    per = check_probe("fire", rec)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    opt.run(fmax=1e-12, steps=300)
+    rate = 300 / (time.time() - t0)
+    prof = profile("FIRE", lambda: opt.run(fmax=1e-12, steps=20), 20,
+                   1.0 / rate)
+    close("fire")
+    db.reset_launches()
+    s = bulk_fcc("Cu", 3.65).repeat(sb.REPS_MD)
+    s.rattle(0.05, seed=1)
+    s.calc = calc
+    e0 = s.get_potential_energy()
+    copt = dfire.DeviceFIRE(s, calc, chunk=150, check_beta=False, cell=True)
+    t0 = time.time()
+    with db.chunk_probe(dfire, "fire_cell_chunk", 11) as crec:
+        conv = copt.run(fmax=0.05, steps=500)
+    wall = time.time() - t0
+    check_probe("fire_cell", crec)
+    close("fire_cell")
+    e1 = s.get_potential_energy()
+    a_final = float(np.cbrt(s.volume / np.prod(sb.REPS_MD)))
+    log(f"FIRE [{card}]: {rate:.1f} iterations/s over 300 (chunk 150), "
+        f"kernel launches per iteration {per}; variable cell from a = 3.65 "
+        f"A: {copt.nsteps} iterations in {wall:.2f} s, converged {conv}, "
+        f"final fmax {copt.fmax:.4f} eV/A, final a {a_final:.5f} A, energy "
+        f"{e0:.4f} -> {e1:.4f} eV")
+    if not e1 < e0:
+        raise AssertionError("variable-cell FIRE: the energy did not drop")
+    numbers["fire"] = dict(iters_per_s=rate, launches_per_iter=per,
+                           profile=prof, cell_iters=copt.nsteps,
+                           cell_fmax=copt.fmax, cell_a=a_final,
+                           cell_e=(e0, e1))
+
+    # 7.5 NEB: a vacancy hop, relaxed end points (counted as a path of
+    # their own), five interior images
+    db.reset_launches()
+    calc = db.serving_calc()
+    ends = db.vacancy_hop()
+    for im in ends:
+        im.calc = calc
+        dfire.DeviceFIRE(im, calc, chunk=150, check_beta=False).run(
+            fmax=0.05, steps=1000)
+    close("neb_ends")
+    images = interpolate_images(ends[0], ends[1], 7)
+    for im in images:
+        im.calc = calc
+    band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, dt=0.05,
+                          maxstep=0.1, chunk=50, check_beta=False)
+    torch.cuda.synchronize()
+    db.reset_launches()
+    t0 = time.time()
+    with db.chunk_probe(dneb, "neb_chunk", 9) as rec:
+        conv = band.run(fmax=0.05, steps=300)
+    wall = time.time() - t0
+    per = check_probe("neb", rec, per_eval=True)
+    close("neb")
+    barrier = band.barrier()
+    evals = rec["steps"] + rec["calls"]
+    log(f"NEB [{card}]: {len(images[0])} atoms x {len(images) - 2} moving "
+        f"images, {band.nsteps} iterations ({evals} band evaluations) in "
+        f"{wall:.2f} s: {evals / wall:.1f} band evaluations/s ("
+        f"{evals / rec['wall']:.1f} inside the chunks, {rec['calls']} "
+        f"chunks), converged {conv}, final fmax {band.fmax:.4f} eV/A, "
+        f"barrier {barrier:.4f} eV; kernel launches per band evaluation "
+        f"{per}")
+    if not (np.isfinite(barrier) and barrier > 0):
+        raise AssertionError("NEB: the barrier is not finite and positive")
+    if any(v != 1 for v in per.values()):
+        raise AssertionError("NEB: not one launch of each kernel per band "
+                             "evaluation")
+    # the band as the chunks stack it: float32 through the kernels against
+    # each image alone in float64 through the plain versions
+    de, e_scale, df, f_scale, band_rows = db.band_rel_err(band)
+    log(f"NEB band, {band_rows[0].shape[0]} stacked rows, K = "
+        f"{band_rows[0].shape[1]}: float32 (kernels) vs each image alone in "
+        f"float64 (plain): energy max abs err {de:.3e} eV, relative to the "
+        f"largest |E| {e_scale:.3e} eV: {de / e_scale:.3e} (tol "
+        f"{db.BAND_E_TOL:g}); forces max abs err {df:.3e} eV/A, relative to "
+        f"the largest |f| {f_scale:.3e} eV/A: {df / f_scale:.3e} (tol "
+        f"{db.BAND_F_TOL:g})")
+    if not (de <= db.BAND_E_TOL * e_scale and df <= db.BAND_F_TOL * f_scale):
+        raise AssertionError("NEB band: float32 stacked evaluation disagrees "
+                             "with float64 per image")
+    numbers["neb"] = dict(evals_per_s=evals / wall,
+                          evals_per_s_in_chunks=evals / rec["wall"],
+                          iterations=band.nsteps,
+                          fmax=band.fmax, barrier=barrier,
+                          launches_per_eval=per, band_e_rel_err=de / e_scale,
+                          band_f_rel_err=df / f_scale)
+    log(f"phase 7 took {time.time() - t_phase:.1f} s")
+    print(json.dumps({"drivers": numbers}))
+    return paths, (calc.engine.params, band_rows)
+
+
 def _launch_counts():
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
 
@@ -456,22 +769,6 @@ def phase_otf(card):
     return out, calc, learning
 
 
-@contextlib.contextmanager
-def _plain_route():
-    """The engine's kernel calls go to the plain versions (also on a CUDA
-    tensor), for the float64 reference of kernel_block."""
-    import autoforce_tpu_torch.engine as engine_mod
-    from autoforce_tpu_torch.descriptor import soap_kernels as sk
-
-    saved = engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd
-    engine_mod.soap_coeff_fwd = sk.soap_coeff_fwd_plain
-    engine_mod.soap_coeff_bwd = sk.soap_coeff_bwd_plain
-    try:
-        yield
-    finally:
-        engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd = saved
-
-
 def phase_otf_columns(calc, card):
     """On the learned model: kernel_block float32 (kernels) against float64
     (plain versions), and the device time per call of kernel_block and
@@ -480,6 +777,7 @@ def phase_otf_columns(calc, card):
     import torch
 
     from autoforce_tpu_torch.engine import _env_rvec, kernel_block_fn
+    from autoforce_tpu_torch.tools import driver_bench as db
     from autoforce_tpu_torch.tools import soap_bench as sb
 
     model, eng = calc.model, calc.engine
@@ -490,7 +788,7 @@ def phase_otf_columns(calc, card):
     ke, kf, kv = eng.kernel_block(cfg, ma)
     f64 = torch.float64
     cfg64 = cfg._replace(positions=cfg.positions.to(f64), cell=cfg.cell.to(f64))
-    with _plain_route():
+    with db.plain_kernels():
         ke64, kf64, kv64 = kernel_block_fn(cfg64, ma, eng.radii_table().to(f64),
                                            eng.params, eng.exponent)
     torch.cuda.synchronize()
@@ -719,6 +1017,10 @@ def run_phases(torch):
     del cases
     phase_accuracy(model)
     rates, launches, drift, md_inputs, dyn = phase_md(model, card)
+    driver_launches, neb_band = phase_drivers(card)
+    # both kernels at the NEB band's shape: the interior images stacked
+    worst.update(phase_kernels({"neb_band": neb_band + (both,)}))
+    timing["neb_band"] = neb_band
     k_md = timing["md_bucket"][1][0].shape[1]
     if md_inputs[0].shape[1] != k_md:
         log(f"note: MD bucket K={md_inputs[0].shape[1]} (phase 2 used {k_md})")
@@ -735,8 +1037,8 @@ def run_phases(torch):
     timing["otf_block_rows"] = (params, (rvec.repeat(64, 1, 1), sidx.repeat(64, 1),
                                          mask.repeat(64, 1), radii))
     del calc
-    rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches},
-                         card)
+    rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
+                                         **driver_launches}, card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
     log(f"summary: {len(md_inputs[0])}-atom Cu Langevin MD median "

@@ -17,6 +17,7 @@ import torch
 
 from autoforce_tpu_torch.descriptor import soap_kernels as sk
 from autoforce_tpu_torch.descriptor.soap import SoapParams
+from autoforce_tpu_torch.tools import driver_bench as db
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = os.path.join(ROOT, "baselines", "bench_model.pckl")
@@ -247,14 +248,6 @@ def learned(cuda):
     return calc
 
 
-def plain_route(monkeypatch):
-    """The engine's kernel calls go to the plain versions."""
-    import autoforce_tpu_torch.engine as engine_mod
-
-    monkeypatch.setattr(engine_mod, "soap_coeff_fwd", sk.soap_coeff_fwd_plain)
-    monkeypatch.setattr(engine_mod, "soap_coeff_bwd", sk.soap_coeff_bwd_plain)
-
-
 def close(got, ref, tol):
     for g, r in zip(got, ref):
         scale = r.abs().max().item()
@@ -262,7 +255,7 @@ def close(got, ref, tol):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-def test_kernel_block_kernel_route_matches_plain(learned, monkeypatch, dtype):
+def test_kernel_block_kernel_route_matches_plain(learned, dtype):
     eng, model = learned.engine, learned.model
     ma = model.full_model_arrays()
     cfg64 = model.data[-1].cfg
@@ -279,13 +272,13 @@ def test_kernel_block_kernel_route_matches_plain(learned, monkeypatch, dtype):
     # one forward launch for the record, one backward launch per chunk
     assert sk.soap_coeff_fwd.launches == 1
     assert sk.soap_coeff_bwd.launches == -(-model.m // bs)
-    plain_route(monkeypatch)
-    ref = kernel_block_fn(cfg64, ma, eng.radii_table(), eng.params, eng.exponent,
-                          batch_size=bs)
+    with db.plain_kernels():
+        ref = kernel_block_fn(cfg64, ma, eng.radii_table(), eng.params,
+                              eng.exponent, batch_size=bs)
     close(got, ref, 1e-10 if dtype == "float64" else 1e-4)
 
 
-def test_kernel_cols_multi_kernel_route_matches_plain(learned, monkeypatch):
+def test_kernel_cols_multi_kernel_route_matches_plain(learned):
     eng, model = learned.engine, learned.model
     ma = model.full_model_arrays()
     cfg = model.data[-1].cfg
@@ -295,6 +288,93 @@ def test_kernel_cols_multi_kernel_route_matches_plain(learned, monkeypatch):
     sk.soap_coeff_bwd.launches = 0
     got = eng.kernel_cols_multi(*args)
     assert sk.soap_coeff_fwd.launches == 1 and sk.soap_coeff_bwd.launches == 1
-    plain_route(monkeypatch)
-    ref = eng.kernel_cols_multi(*args)
+    with db.plain_kernels():
+        ref = eng.kernel_cols_multi(*args)
     close(got, ref, 1e-10)
+
+
+def test_strain_gradient_float32_matches_float64_on_card(cuda):
+    """The anisotropic dE/deps of the NPT and variable-cell FIRE steps:
+    float32 through the kernels against float64 through the plain
+    versions on the 1008-atom bench snapshot (tolerance justified beside
+    driver_bench.STRESS_REL_TOL)."""
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    err, scale, _ = db.stress_rel_err(db.serving_calc(), sb.bench_system())
+    assert err <= db.STRESS_REL_TOL * scale, (err, scale)
+
+
+def test_driver_chunks_never_wait_for_the_card(cuda):
+    """One chunk of every structure driver under CUDA's sync debug mode
+    (a host sync inside raises), with both kernels launched in it."""
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md import device_npt as dnpt
+    from autoforce_tpu_torch.opt import device_fire as dfire
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+
+    def system():
+        s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+        s.rattle(0.05, seed=1)
+        maxwell_boltzmann_velocities(s, 300, seed=3)
+        return s
+
+    fs = units.fs
+    runs = (
+        (dmd, "md_chunk", 5, lambda s, c: dmd.DeviceMD(
+            s, c, 2 * fs, temperature_K=300, chunk=10, check_beta=False,
+            thermostat="nhc").run(10)),
+        (dnpt, "md_chunk_npt", 6, lambda s, c: dnpt.DeviceNPT(
+            s, c, 2 * fs, temperature_K=300, pressure_GPa=120.0, chunk=10,
+            check_beta=False, mask=(1, 1, 0)).run(10)),
+        (dfire, "fire_chunk", 9, lambda s, c: dfire.DeviceFIRE(
+            s, c, chunk=10, check_beta=False).run(fmax=1e-9, steps=10)),
+        (dfire, "fire_cell_chunk", 11, lambda s, c: dfire.DeviceFIRE(
+            s, c, chunk=10, check_beta=False, cell=True).run(fmax=1e-9,
+                                                             steps=10)),
+    )
+    for module, name, ndone_at, run in runs:
+        calc = db.serving_calc()
+        s = system()
+        s.calc = calc
+        with db.chunk_probe(module, name, ndone_at) as rec:
+            run(s, calc)
+        assert rec["sync_checked"] and rec["steps"] == 10, (name, rec)
+        assert rec["soap_coeff_fwd"] >= 10 and rec["soap_coeff_bwd"] >= 10
+
+
+def test_neb_launches_each_kernel_once_per_band_evaluation(cuda):
+    from autoforce_tpu_torch.opt import device_neb as dneb
+    from autoforce_tpu_torch.opt.neb import interpolate_images
+
+    calc = db.serving_calc()
+    first, last = db.vacancy_hop(reps=(4, 4, 4))
+    images = interpolate_images(first, last, 5)
+    for im in images:
+        im.calc = calc
+    band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, dt=0.05,
+                          maxstep=0.1, chunk=8, check_beta=False)
+    with db.chunk_probe(dneb, "neb_chunk", 9) as rec:
+        band.run(fmax=1e-9, steps=20)
+    evals = rec["steps"] + rec["calls"]
+    assert band.nsteps == rec["steps"] == 20 and rec["sync_checked"]
+    assert rec["soap_coeff_fwd"] == rec["soap_coeff_bwd"] == evals, rec
+
+
+def test_neb_band_float32_matches_float64_per_image(cuda):
+    """The interior images stacked as the band's chunks see them, float32
+    through the kernels, against each image alone in float64 through the
+    plain versions (tolerances justified beside driver_bench.BAND_F_TOL)."""
+    from autoforce_tpu_torch.opt import device_neb as dneb
+    from autoforce_tpu_torch.opt.neb import interpolate_images
+
+    calc = db.serving_calc()
+    first, last = db.vacancy_hop(reps=(4, 4, 4))
+    images = interpolate_images(first, last, 5)
+    for im in images:
+        im.calc = calc
+    band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, check_beta=False)
+    de, e_scale, df, f_scale, rows = db.band_rel_err(band)
+    assert rows[0].shape[0] == 3 * band._npad
+    assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
+    assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)

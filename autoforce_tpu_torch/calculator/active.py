@@ -14,9 +14,11 @@ on the host.  β updates inside the inducing-sampling loop are computed on
 the host from the already-fetched covariance rows, so the loop adds no
 extra device round trips.
 
-Not ported: kernel hyperparameter optimization (``kernel_hpo``,
-``optimize_kernel``), training from a reference torch folder
-(``include_folder``), metadynamics biases and the device mesh.
+The engine's whole kernel space is served (kernel expressions, alchemical
+mixing, pair terms), and ``kernel_hpo=k`` optimizes the kernel
+expression's hyperparameters every k-th model update
+(:mod:`..regression.hpo`).  Not ported: training from a reference torch
+folder (``include_folder``), metadynamics biases and the device mesh.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..descriptor.radial import DefaultRadii
 from ..descriptor.soap import SoapParams
 from ..engine import Engine, device_fetch, voigt6
 from ..io.tape import SgprTape
+from ..kernelalgebra import KernelExpr
 from ..neighbors import VerletNeighborCache, neighbor_table, round_up
 from ..regression.sgpr import DataRecord, InducingEnv, SgprModel
 from ..system import SinglePointCalculator
@@ -122,9 +125,6 @@ class ActiveCalculator:
             raise TypeError(f"oracle {calculator!r} has no calculate()")
         if mesh is not None:
             raise NotImplementedError("the device mesh is not ported yet")
-        if kernel_hpo:
-            raise NotImplementedError(
-                "kernel hyperparameter optimization is not ported yet")
         self._calc = calculator
         self.pckl = pckl
         self._get_model(covariance, kernel_kw or {}, device, dtype)
@@ -164,6 +164,12 @@ class ActiveCalculator:
         # neighbor-slot bucket floor, on the 16-slot bucket grid
         self._kpad = round_up(int(kpad_min), 16) if kpad_min else 0
         self._nlcache = VerletNeighborCache(self.engine.params.rc, skin=skin)
+        # kernel-hyperparameter optimization cadence: every k-th model
+        # update, maximize the marginal likelihood over the KernelExpr's
+        # trainable parameters and rebuild the covariance blocks; None
+        # disables
+        self.kernel_hpo = kernel_hpo
+        self._hpo_count = 0
         # wall-clock accounting per phase: staging/predict/active/post
         # from calculate()'s segment clocks; upd_inducing/upd_data/
         # upd_refit/oracle from update().  The OTF phase of chip_smoke.py
@@ -362,8 +368,13 @@ class ActiveCalculator:
         e, f, w, cov, beta = self.engine.predict(self.cfg, ma, vs)
         # one device->host transfer per step: learning steps take the
         # (n, m) covariance rows (the sampling loop's β), serving steps
-        # only the per-atom β
-        tail = cov[:n, :m] if self.active else beta[:n]
+        # only the per-atom β.  The β shortcut is taken only for the plain
+        # normalized dot kernel, as in the JAX package: the host k(x, x)
+        # (_host_alpha) and the device's differ for the mixed normed
+        # kernel, and mixing the two would shift the thresholds between
+        # learning and serving steps
+        want_cov = self.active or not self.engine.plain_kernel
+        tail = cov[:n, :m] if want_cov else beta[:n]
         e, f, w, tail = device_fetch(e, f, w, tail)
         energy = float(e) + self.model.mean_energy(self.system.numbers)
         forces = f[:n].astype(np.float64)
@@ -373,7 +384,7 @@ class ActiveCalculator:
             stress = np.zeros(6)
         self.results = {"energy": energy, "forces": forces, "stress": stress}
         self.maximum_force = float(np.abs(forces).max()) if n else inf
-        if self.active:
+        if want_cov:
             self._cov = tail.astype(np.float64)
             self._beta_dev = None
         else:
@@ -385,15 +396,41 @@ class ActiveCalculator:
     def _get_desc(self):
         if self._desc is None:
             n = len(self.system)
-            p, lone = device_fetch(*self.engine.descriptors(self.cfg))
+            arrays = self.engine.descriptors(self.cfg)
+            if self.engine.pair_terms:
+                arrays += (self.engine.pair_self(self.cfg),)
+            p, lone, *pair = device_fetch(*arrays)
             self._desc = p[:n].astype(np.float64)
             self._lone = lone[:n]
+            self._pair_alpha = pair[0][:n].astype(np.float64) if pair else None
         return self._desc
 
     def _host_alpha(self):
-        """Per-atom kernel diagonal k(x,x): 1 for the normalized dot
-        kernel, the only kind ported."""
-        return 1.0
+        """Per-atom kernel diagonal k(x,x) for covloss normalization: 1
+        for the default normalized dot kernel; the alchemical mixing and
+        kernel expressions change it, and the pair terms add their own
+        k(P, P), as in the device β.  (The JAX package's host loop leaves
+        the pair share out; c then exceeds 1 on the pair-selected atoms,
+        their β is 0 and they are never sampled.)"""
+        eng = self.engine
+        kind = eng.kernel_kind
+        if not (isinstance(kind, KernelExpr) or eng.chemical or eng.pair_terms):
+            return 1.0
+        p = self._get_desc()
+        if isinstance(kind, KernelExpr):
+            a = np.asarray(kind.value((p * p).sum(axis=1), xp=np))
+            a = a + float(kind.white_diag(xp=np))
+            a = np.where(self._lone, a + 1.0, a)
+        elif eng.chemical:
+            a = (p * p).sum(axis=1)
+            if kind == "dot":
+                a = a**eng.exponent
+            a = np.where(self._lone, a + 1.0, a)
+        else:
+            a = np.ones(len(p))
+        if eng.pair_terms:
+            a = a + self._pair_alpha
+        return np.maximum(a, 1e-12)
 
     def _host_beta(self):
         """β from host-side cov/choli (active.py:781-804), updatable inside
@@ -421,11 +458,25 @@ class ActiveCalculator:
         return beta * np.sqrt(vs)
 
     def _extend_cov(self, env):
-        """Append the kernel column of a new inducing env to host cov."""
+        """Append the kernel column of a new inducing env to host cov
+        (the base-kernel kind, the chemical central factor and the pair
+        terms)."""
         p = self._get_desc()
+        model = self.model
         numbers = self.system.numbers
-        col = self.model._base_kernel(p @ env.desc) * (numbers == env.number)
+        col = model._base_kernel(p @ env.desc)
+        central = np.array([model._central(int(z), env.number)
+                            for z in numbers])
+        col = col * central
         col = col + ((self._lone & env.lone) & (numbers == env.number))
+        if self.engine.pair_terms:
+            from ..pairkernels import pair_cols_config_np
+
+            col = col + pair_cols_config_np(
+                self.system.positions, self.system.cell,
+                np.asarray(numbers), self._nl, self.engine.params.rc, env,
+                self.engine.pair_terms,
+            )
         self._cov = np.concatenate([self._cov, col[:, None]], axis=1)
 
     # --------------------------------------------------------------- the LCEs
@@ -833,11 +884,23 @@ class ActiveCalculator:
         self.model.optimize_model_parameters(noise_f=self.noise_f)
 
     def optimize_kernel(self):
-        raise NotImplementedError(
-            "kernel hyperparameter optimization is not ported yet")
+        """Marginal-likelihood optimization of the kernel expression's
+        trainable hyperparameters + full covariance rebuild
+        (regression/hpo.py; reference gppotential.py:352-371)."""
+        from ..regression.hpo import optimize_kernel_params
+
+        if not isinstance(self.engine.kernel_kind, KernelExpr):
+            return False
+        moved = optimize_kernel_params(self.model, noise_e=self.noise_f)
+        if moved:
+            self.model.rebuild_kernel_matrices(remake=True)
+            self._cov = None  # host covariance rows are stale too
+            self._beta_dev = None
+            self.log(f"kernel HPO: {self.engine.kernel_kind.state}")
+        return moved
 
     def update(self, inducing=True, data=True):
-        """Orchestrate sampling + downsize (active.py:940-983)."""
+        """Orchestrate sampling + downsize + HPO (active.py:940-983)."""
         self.updated = False
         self.blind = False
         t0 = time.time()
@@ -877,6 +940,12 @@ class ActiveCalculator:
             )
             self.log(f"noise: {self.model.scaled_noise}")
             self.log(f"mean: {self.model.mean_weights}")
+            if self.kernel_hpo:
+                self._hpo_count += 1
+                if self._hpo_count % self.kernel_hpo == 0:
+                    self.event_counts["kernel_hpo"] += 1
+                    if self.optimize_kernel():
+                        self.event_counts["kernel_hpo_moved"] += 1
             self.save_model()
             self.updated = True
             self.phase_wall["upd_refit"] += time.time() - t0

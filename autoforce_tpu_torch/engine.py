@@ -1,5 +1,5 @@
 """Device engine: predict / descriptor / kernel-block functions on torch
-tensors (port of ``autoforce_tpu/engine.py``, SOAP dot kernel only).
+tensors (port of ``autoforce_tpu/engine.py``).
 
 The host state machine (:mod:`..calculator.active`, :mod:`..regression.sgpr`)
 calls a small set of functions on padded, statically-shaped tensors:
@@ -17,14 +17,23 @@ calls a small set of functions on padded, statically-shaped tensors:
   * ``kernel_block_fn``   — the same against the whole inducing set
                             (add_data)
 
+  * ``kernel_block_jac_fn`` — the same block through the descriptor
+                            Jacobian (one one-hot backward-kernel launch,
+                            then matrix products; the dot kernel only)
+
 The descriptor inside them goes through the SOAP coefficient kernels
-(``descriptor.soap_kernels.sesoap_descriptors_k``).  Pair terms,
-alchemical species mixing, kernel expressions and the device mesh are not
-ported yet: the Engine refuses them.
+(``descriptor.soap_kernels.sesoap_descriptors_k``).  The kernel space of
+the JAX package rides along as a :class:`KernelSpace` (``Engine.
+kernel_space()``): the base kernel (``"dot"``, ``"rbf"``, ``"normed"`` or a
+:class:`~.kernelalgebra.KernelExpr`), the alchemical central factor and
+species mixing (``chemical="rbf"``) and two-body pair terms
+(:mod:`.pairkernels`, plain torch on the neighbor distances).  The device
+mesh is not ported: the Engine refuses it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import NamedTuple
 
@@ -33,14 +42,32 @@ import torch
 
 from . import resolve_device
 from .descriptor.radial import as_radii
-from .descriptor.soap import SoapParams, power_spectrum
+from .descriptor.soap import SoapParams, _spectrum_constants, power_spectrum
 from .descriptor.soap_kernels import (
     sesoap_descriptors_k,
     soap_coeff_bwd,
     soap_coeff_fwd,
 )
-from .kernels import covloss_beta, gram
+from .kernelalgebra import KernelExpr
+from .kernels import (
+    base_kernel,
+    base_kernel_grad,
+    central_factor,
+    covloss_beta,
+    gram,
+)
 from .neighbors import neighbor_table, reverse_slots_host, round_up
+from .pairkernels import (
+    _factor,
+    _psi,
+    config_pair_mask,
+    pair_diag,
+    pair_gram,
+    pair_slot_derivative,
+    pair_slot_sums,
+    psi_factor_grads,
+    stage_env_pairs,
+)
 
 
 class ConfigArrays(NamedTuple):
@@ -72,6 +99,8 @@ class ModelArrays(NamedTuple):
     m_mask: torch.Tensor  # (M,) bool
     mu: torch.Tensor  # (M,)
     choli: torch.Tensor  # (M, M), zero-padded
+    pair_d: torch.Tensor = None  # (T, M, KX) pair distances per pair term
+    pair_mask: torch.Tensor = None  # (T, M, KX)
 
 
 class EnvArrays(NamedTuple):
@@ -80,6 +109,24 @@ class EnvArrays(NamedTuple):
     rvec: torch.Tensor  # (B, K, 3)
     sidx: torch.Tensor  # (B, K) int32
     mask: torch.Tensor  # (B, K) bool
+
+
+class KernelSpace(NamedTuple):
+    """Everything of the kernel beyond the descriptor and zeta: the
+    species table's atomic numbers ``znum`` (S,), the pair terms, the
+    alchemical chi table ``chem_z`` (Zmax, Zmax) and mixing cholesky
+    ``mixL`` (S, S) (None without ``chemical``), and the base kernel
+    ``kind``.  ``None`` in place of a KernelSpace is the plain dot
+    kernel."""
+
+    znum: torch.Tensor = None
+    pair_terms: tuple = ()
+    chem_z: torch.Tensor = None
+    mixL: torch.Tensor = None
+    kind: object = "dot"
+
+
+PLAIN = KernelSpace()
 
 
 class _NbrGatherRev(torch.autograd.Function):
@@ -129,6 +176,18 @@ def _env_rvec(positions, cell, cfg: ConfigArrays, use_rev=False):
     return nbrs - positions[:, None, :] + shift
 
 
+def _chem_mix(p, mixL, nspecies):
+    """Alchemical species mixing of the power spectrum (chemical.py):
+    p~ = (L (x) L) p over the two species axes."""
+    if mixL is None:
+        return p
+    batch = p.shape[:-1]
+    q = p.reshape(*batch, nspecies, nspecies, -1)
+    L = mixL.to(p.dtype)
+    q = torch.einsum("ab,cd,...bdk->...ack", L, L, q)
+    return q.reshape(*batch, -1)
+
+
 def _config_descriptors(positions, cell, cfg, radii, params, use_rev=False):
     rvec = _env_rvec(positions, cell, cfg, use_rev=use_rev)
     mask = cfg.nbr_mask & cfg.atom_mask[:, None]
@@ -141,20 +200,58 @@ def _config_descriptors(positions, cell, cfg, radii, params, use_rev=False):
     return p, lone
 
 
+def _pair_rows(rvec, cfg, znum, term):
+    """(distances (N, K), selected-pair mask) of a configuration's rows
+    for one pair term."""
+    d = torch.sqrt((rvec * rvec).sum(-1) + 1e-30)
+    nbrz = znum[cfg.nbr_sidx.long().clamp(0, znum.shape[0] - 1)]
+    mask = cfg.nbr_mask & cfg.atom_mask[:, None]
+    m1 = config_pair_mask(term, cfg.numbers, nbrz, cfg.nbr_idx, cfg.nbr_off,
+                          mask)
+    return d, m1
+
+
+def _self_alpha(p, lone, exponent, ks):
+    """The true kernel diagonal k(x, x) of each LCE (SOAP part), from its
+    (mixed) descriptor: 1 for the normalized dot and rbf kernels."""
+    kind = ks.kind
+    if isinstance(kind, KernelExpr):
+        # the expression on the self-dot, plus the White same-environment
+        # variance
+        alpha = kind.value((p * p).sum(dim=-1)) + float(kind.white_diag(xp=np))
+    elif ks.mixL is None or kind == "rbf":
+        return torch.ones(p.shape[0], dtype=p.dtype, device=p.device)
+    else:
+        alpha = (p * p).sum(dim=-1) ** exponent
+    alpha = torch.where(lone, alpha + 1.0, alpha)
+    return torch.clamp(alpha, min=1e-12)
+
+
 def _total_cov(posd, celld, cfg, X_desc, X_num, X_lone, radii, params,
-               exponent, use_rev=False):
-    """SOAP covariance block (n, M), lone flags and the per-LCE kernel
-    diagonal alpha (1 for the normalized dot kernel)."""
+               exponent, use_rev=False, ks=None, pair_d=None, pair_mask=None):
+    """SOAP covariance block (n, M) plus the pair terms' contributions,
+    lone flags and the per-LCE kernel diagonal alpha (the covloss
+    normalization; 1 for the normalized dot kernel).  ``ks``: the
+    :class:`KernelSpace` (None: the plain dot kernel); ``pair_d`` /
+    ``pair_mask``: the inducing set's staged pair distances (T, M, KX)."""
+    ks = ks or PLAIN
     p, lone = _config_descriptors(posd, celld, cfg, radii, params,
                                   use_rev=use_rev)
-    cov = gram(p, cfg.numbers, lone, X_desc, X_num, X_lone, exponent)
-    alpha = torch.ones(cfg.nbr_mask.shape[0], dtype=posd.dtype,
-                       device=posd.device)
+    p = _chem_mix(p, ks.mixL, radii.shape[0])
+    cov = gram(p, cfg.numbers, lone, X_desc, X_num, X_lone, exponent,
+               chem=ks.chem_z, kind=ks.kind)
+    alpha = _self_alpha(p, lone, exponent, ks)
+    if ks.pair_terms:
+        rvec = _env_rvec(posd, celld, cfg, use_rev=use_rev)
+        for t, term in enumerate(ks.pair_terms):
+            d, m1 = _pair_rows(rvec, cfg, ks.znum, term)
+            cov = cov + pair_gram(d, m1, pair_d[t], pair_mask[t], term)
+            alpha = alpha + pair_diag(d, m1, term)
     return cov, lone, alpha
 
 
 def predict_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
-               params, exponent):
+               params, exponent, ks=None):
     """Energy, forces, virial, covariance and beta from one backward pass
     over (positions, strain) (reference hot path §3.1)."""
     pos = cfg.positions.detach().requires_grad_(True)
@@ -166,7 +263,8 @@ def predict_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
         celld = cfg.cell @ one
         cov, lone, alpha = _total_cov(
             posd, celld, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True,
+            radii, params, exponent, use_rev=True, ks=ks,
+            pair_d=model.pair_d, pair_mask=model.pair_mask,
         )
         cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
         e = (cov @ model.mu).sum()
@@ -175,7 +273,7 @@ def predict_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
     virial = 0.5 * (deps + deps.T)
     cov = cov.detach()
     beta = covloss_beta(model.choli, cov, vscale_atom, model.m_mask,
-                        alpha=alpha)
+                        alpha=alpha.detach())
     beta = torch.where(cfg.atom_mask, beta, torch.full_like(beta, -np.inf))
     return e.detach(), forces, virial, cov, beta
 
@@ -186,18 +284,44 @@ def descriptors_fn(cfg: ConfigArrays, radii, params):
 
 
 @torch.no_grad()
-def env_descriptors_fn(envs: EnvArrays, radii, params):
-    """Descriptors for a batch of raw environments (inducing set staging)."""
+def pair_self_fn(cfg: ConfigArrays, ks):
+    """The pair terms' share of each LCE's kernel diagonal k(x, x)."""
+    rvec = _env_rvec(cfg.positions, cfg.cell, cfg)
+    out = torch.zeros(rvec.shape[0], dtype=rvec.dtype, device=rvec.device)
+    for term in ks.pair_terms:
+        d, m1 = _pair_rows(rvec, cfg, ks.znum, term)
+        out = out + pair_diag(d, m1, term)
+    return out
+
+
+@torch.no_grad()
+def env_descriptors_fn(envs: EnvArrays, radii, params, mixL=None):
+    """Descriptors for a batch of raw environments (inducing set staging),
+    alchemically mixed with ``mixL``."""
     p = sesoap_descriptors_k(envs.rvec, envs.sidx, envs.mask, radii, params)
+    p = _chem_mix(p, mixL, radii.shape[0])
     lone = ~envs.mask.any(dim=-1)
     return p, lone
 
 
 @torch.no_grad()
-def gram_self_fn(cfg: ConfigArrays, radii, params, exponent):
+def gram_self_fn(cfg: ConfigArrays, radii, params, exponent, ks=None):
     """LCE x LCE kernel of one configuration (model seeding)."""
+    ks = ks or PLAIN
     p, lone = _config_descriptors(cfg.positions, cfg.cell, cfg, radii, params)
-    return gram(p, cfg.numbers, lone, p, cfg.numbers, lone, exponent)
+    p = _chem_mix(p, ks.mixL, radii.shape[0])
+    k = gram(p, cfg.numbers, lone, p, cfg.numbers, lone, exponent,
+             chem=ks.chem_z, kind=ks.kind)
+    if isinstance(ks.kind, KernelExpr):
+        # same-environment White variance belongs on the true diagonal
+        k = k + float(ks.kind.white_diag(xp=np)) * torch.eye(
+            k.shape[0], dtype=k.dtype, device=k.device)
+    if ks.pair_terms:
+        rvec = _env_rvec(cfg.positions, cfg.cell, cfg)
+        for term in ks.pair_terms:
+            d, m1 = _pair_rows(rvec, cfg, ks.znum, term)
+            k = k + pair_gram(d, m1, d, m1, term)
+    return k
 
 
 def _atom_sum(rbar, cfg):
@@ -216,10 +340,20 @@ def _atom_sum(rbar, cfg):
     return out.index_add_(len(lead), cfg.nbr_idx.reshape(-1).long(), flat)
 
 
+def _force_virial(rbar, r0, cfg):
+    """(Kf (C, N, 3), Kv (C, 3, 3)) of C columns from their displacement
+    gradients rbar (C, N, K, 3) = dKe/drvec: forces_energy = -leftgrad,
+    virial = sym(sum rvec (x) rbar)."""
+    dpos = _atom_sum(rbar, cfg) - rbar.sum(dim=-2)
+    kf = -dpos * cfg.atom_mask[:, None].to(dpos.dtype)
+    deps = torch.einsum("nka,cnkb->cab", r0, rbar)
+    return kf, 0.5 * (deps + deps.transpose(1, 2))
+
+
 class _Rows(NamedTuple):
     """The rows of same-bucket configurations stacked, their coefficients
-    (one forward launch) and the power spectrum, its graph kept for the
-    column backwards."""
+    (one forward launch) and the (mixed) power spectrum, its graph kept
+    for the column backwards."""
     r0: torch.Tensor
     sidx: torch.Tensor
     mask: torch.Tensor
@@ -231,7 +365,7 @@ class _Rows(NamedTuple):
     p: torch.Tensor
 
 
-def _stack_rows(cfgs, radii, params) -> _Rows:
+def _stack_rows(cfgs, radii, params, mixL=None) -> _Rows:
     """The per-configuration part of the kernel columns."""
     with torch.no_grad():
         r0 = torch.cat([_env_rvec(c.positions, c.cell, c) for c in cfgs])
@@ -248,25 +382,57 @@ def _stack_rows(cfgs, radii, params) -> _Rows:
     ci.requires_grad_(True)
     with torch.enable_grad():
         p = power_spectrum(cr.reshape(shape), ci.reshape(shape), params)
+        p = _chem_mix(p, mixL, S)
     return _Rows(r0, sidx, mask, numbers, amask, lone, cr, ci, p)
 
 
+def _pair_columns(rows: _Rows, cfgs, x_pd, x_pm, ks):
+    """Pair terms' (ke (C, B), rbar (C, B n, K, 3)) of C staged pair sets
+    (x_pd, x_pm: (C, T, KX)) against the stacked rows, in plain torch on
+    the distances: every per-slot contribution depends on its own slot's
+    distance only, so dKe/dd is elementwise (``pair_slot_derivative``)."""
+    n, kpad = cfgs[0].nbr_idx.shape
+    B, C = len(cfgs), x_pd.shape[0]
+    r0 = rows.r0.reshape(B, n, kpad, 3)
+    dtype = torch.promote_types(r0.dtype, x_pd.dtype)
+    ke = torch.zeros((C, B), dtype=dtype, device=r0.device)
+    rbar = torch.zeros((C, B, n, kpad, 3), dtype=dtype, device=r0.device)
+    for b, cfg in enumerate(cfgs):
+        for t, term in enumerate(ks.pair_terms):
+            d, m1 = _pair_rows(r0[b], cfg, ks.znum, term)
+            d = d.to(dtype)
+            x1, f1 = _psi(d, term), _factor(d, term) * m1
+            x2 = _psi(x_pd[:, t].to(dtype), term)
+            f2 = _factor(x_pd[:, t].to(dtype), term) * x_pm[:, t]
+            dpsi, dfac = psi_factor_grads(d, term)
+            unit = r0[b].to(dtype) / d[..., None]  # d d / d rvec
+            for lo, hi, A, Bs in pair_slot_sums(x1, x2, f2, term):
+                ke[lo:hi, b] += term.signal**2 * (f1 * A).sum(dim=(1, 2))
+                dh = pair_slot_derivative(A, Bs, f1, dpsi, dfac, m1, term)
+                rbar[lo:hi, b] += dh[..., None] * unit
+    return ke, rbar.reshape(C, B * n, kpad, 3)
+
+
 def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
-             exponent):
+             exponent, ks=None, x_pd=None, x_pm=None):
     """The per-column part: (ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3))
     of C inducing environments against the stacked rows of ``cfgs``."""
+    ks = ks or PLAIN
     n, kpad = cfgs[0].nbr_idx.shape
     B, C = len(cfgs), x_desc.shape[0]
     p, amask = rows.p, rows.amask
     dtype = torch.promote_types(p.dtype, x_desc.dtype)
     x = x_desc.to(dtype)
     dot = p.detach().to(dtype) @ x.T  # (B n, C)
-    same = (rows.numbers[:, None] == x_num[None, :]).to(dtype)
-    valid = same * amask[:, None].to(dtype)
-    k = (dot**exponent + (rows.lone[:, None] & x_lone[None, :]).to(dtype)) * valid
+    cf = central_factor(rows.numbers, x_num, ks.chem_z, dtype)
+    valid = cf * amask[:, None].to(dtype)
+    eq = (rows.numbers[:, None] == x_num[None, :]).to(dtype)
+    lone = (rows.lone[:, None] & x_lone[None, :]).to(dtype) * eq
+    k = (base_kernel(dot, exponent, ks.kind) + lone) * valid
     ke = k.reshape(B, n, C).sum(dim=1).T
-    # dKe_j / dp_i = zeta (p_i . x_j)^(zeta - 1) x_j  (lone term: constant)
-    w = exponent * dot ** (exponent - 1) * valid
+    # dKe_j / dp_i = k'(p_i . x_j) cf_ij x_j  (lone term: constant); with
+    # mixing, p is the mixed spectrum and the backward passes through it
+    w = base_kernel_grad(dot, exponent, ks.kind) * valid
     g = w.T.to(p.dtype)[:, :, None] * x.to(p.dtype)[:, None, :]  # (C, B n, D)
     gcr, gci = torch.autograd.grad(p, (rows.cr, rows.ci), g,
                                    is_grads_batched=True, retain_graph=True)
@@ -276,19 +442,23 @@ def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
         rows.mask.repeat(C, 1), radii,
         gcr.reshape(C * nrows, -1).contiguous(),
         gci.reshape(C * nrows, -1).contiguous(), params,
-    ).reshape(C, B, n, kpad, 3)
+    ).reshape(C, nrows, kpad, 3)
+    if ks.pair_terms:
+        ke_p, rbar_p = _pair_columns(rows, cfgs, x_pd, x_pm, ks)
+        ke = ke + ke_p.to(ke.dtype)
+        rbar = rbar + rbar_p.to(rbar.dtype)
+    rbar = rbar.reshape(C, B, n, kpad, 3)
     kf, kv = [], []
     r0 = rows.r0.reshape(B, n, kpad, 3)
     for b, cfg in enumerate(cfgs):
-        rb = rbar[:, b]
-        dpos = _atom_sum(rb, cfg) - rb.sum(dim=-2)
-        kf.append(-dpos * cfg.atom_mask[:, None].to(dpos.dtype))
-        deps = torch.einsum("nka,cnkb->cab", r0[b], rb)
-        kv.append(0.5 * (deps + deps.transpose(1, 2)))
+        f, v = _force_virial(rbar[:, b], r0[b], cfg)
+        kf.append(f)
+        kv.append(v)
     return ke, torch.stack(kf, dim=1), torch.stack(kv, dim=1)
 
 
-def kernel_cols_multi_fn(cfgs, x_desc, x_num, x_lone, radii, params, exponent):
+def kernel_cols_multi_fn(cfgs, x_desc, x_num, x_lone, radii, params, exponent,
+                         ks=None, x_pd=None, x_pm=None):
     """(Ke, Kf, Kv) of C inducing environments against B same-bucket
     configurations: ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3).
 
@@ -299,17 +469,29 @@ def kernel_cols_multi_fn(cfgs, x_desc, x_num, x_lone, radii, params, exponent):
     (``kernel_col_batch_fn`` / ``kernel_cols_multi_fn`` /
     ``kernel_block_fn``).  Here the configurations' rows are stacked, the
     forward kernel runs once on all of them, the C column cotangents are
-    carried through the power spectrum by one batched backward, and the
-    backward kernel runs once on the rows repeated C times.  Descriptors
-    and both kernels work in the configurations' type; the Gram block in
-    the higher of that and the inducing descriptors' (as ``predict_fn``)."""
+    carried through the power spectrum (and the alchemical mixing) by one
+    batched backward, and the backward kernel runs once on the rows
+    repeated C times.  Pair terms (``x_pd``/``x_pm``: the envs' staged
+    pair distances (C, T, KX)) add their columns through the distances.
+    Descriptors and both kernels work in the configurations' type; the
+    Gram block in the higher of that and the inducing descriptors' (as
+    ``predict_fn``)."""
     cfgs = list(cfgs)
-    return _columns(_stack_rows(cfgs, radii, params), cfgs, x_desc, x_num,
-                    x_lone, radii, params, exponent)
+    mixL = ks.mixL if ks is not None else None
+    return _columns(_stack_rows(cfgs, radii, params, mixL), cfgs, x_desc,
+                    x_num, x_lone, radii, params, exponent, ks, x_pd, x_pm)
+
+
+def _model_pairs(model, sl):
+    """The inducing rows ``sl``'s staged pair sets as (C, T, KX)."""
+    if model.pair_d is None:
+        return None, None
+    return (model.pair_d[:, sl].transpose(0, 1),
+            model.pair_mask[:, sl].transpose(0, 1))
 
 
 def kernel_block_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
-                    exponent, batch_size=64):
+                    exponent, batch_size=64, ks=None):
     """(Ke row (M,), Kf block (N, 3, M), Kv block (3, 3, M)) of a
     configuration against the inducing set: one forward launch and power
     spectrum, then ``batch_size`` columns per backward-kernel launch;
@@ -323,15 +505,233 @@ def kernel_block_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
     ke = torch.zeros(mcap, dtype=dtype, device=dev)
     kf = torch.zeros((n, 3, mcap), dtype=cfg.positions.dtype, device=dev)
     kv = torch.zeros((3, 3, mcap), dtype=cfg.positions.dtype, device=dev)
-    rows = _stack_rows([cfg], radii, params)
+    mixL = ks.mixL if ks is not None else None
+    rows = _stack_rows([cfg], radii, params, mixL)
     for lo in range(0, m, batch_size):
         sl = slice(lo, min(lo + batch_size, m))
+        x_pd, x_pm = _model_pairs(model, sl)
         e, f, v = _columns(rows, [cfg], model.X_desc[sl], model.X_num[sl],
-                           model.X_lone[sl], radii, params, exponent)
+                           model.X_lone[sl], radii, params, exponent, ks,
+                           x_pd, x_pm)
         ke[sl] = e[:, 0]
         kf[..., sl] = f[:, 0].permute(1, 2, 0)
         kv[..., sl] = v[:, 0].permute(1, 2, 0)
     return ke, kf, kv
+
+
+# --------------------------------------------------------------------------
+# the Jacobian route
+# --------------------------------------------------------------------------
+
+
+def coeff_jacobian(rvec, sidx, mask, radii, params):
+    """(2, Q, N, K, 3) = d c[i, s_k, q] / d rvec[i, k] for the real (0) and
+    imaginary (1) coefficients, Q = (nmax+1)(lmax+1)^2 channels per
+    species, from ONE launch of the backward kernel on the rows repeated
+    2Q times with one-hot cotangents.  A slot feeds only its own species'
+    segment, so the one-hot at channel q, set in every species segment at
+    once, gives each slot's derivative of its own species' channel."""
+    N, K, _ = rvec.shape
+    S = radii.shape[0]
+    L = params.lmax + 1
+    Q = (params.nmax + 1) * L * L
+    eye = torch.eye(Q, dtype=rvec.dtype, device=rvec.device)
+    hot = eye[:, None, None, :].expand(Q, N, S, Q).reshape(Q * N, S * Q)
+    zero = torch.zeros_like(hot)
+    crb = torch.cat([hot, zero]).contiguous()
+    cib = torch.cat([zero, hot]).contiguous()
+    rbar = soap_coeff_bwd(rvec.repeat(2 * Q, 1, 1), sidx.repeat(2 * Q, 1),
+                          mask.repeat(2 * Q, 1), radii, crb, cib, params)
+    return rbar.reshape(2, Q, N, K, 3)
+
+
+def _sym_blocks(x, S, params):
+    """(..., L, S nf, S nf) blocks Xs[l, (a,u), (b,v)] = (x[a,b,u,v,l] +
+    x[b,a,v,u,l]) nnl[u,v,l] of descriptor-space vectors x (..., D): the
+    power spectrum's bilinear form, so that d(x . p~)/dc[a,u,l,m] =
+    w[l,m] sum_(b,v) Xs[l,(a,u),(b,v)] c[b,v,l,m]."""
+    nf, L = params.nmax + 1, params.lmax + 1
+    lead = x.shape[:-1]
+    nl = len(lead)
+    xr = x.reshape(*lead, S, S, nf, nf, L)
+    x1 = xr.permute(*range(nl), nl + 4, nl, nl + 2, nl + 1, nl + 3)
+    x2 = x1.permute(*range(nl), nl, nl + 3, nl + 4, nl + 1, nl + 2)
+    _, nnl = _spectrum_constants(params, x.dtype, x.device)
+    w = nnl.permute(2, 0, 1)[:, None, :, None, :]  # (L, 1, u, 1, v)
+    return ((x1 + x2) * w).reshape(*lead, L, S * nf, S * nf)
+
+
+def _spectrum_vjp(xs, cl, wlm, lead_eq):
+    """d(x . p~)/dc from ``_sym_blocks`` ``xs`` and per-l coefficient
+    blocks ``cl`` (N, L, S nf, L): (N, C, L, S nf, L) for a column batch
+    xs (C, L, P, P), or (N, L, S nf, L) for per-row xs (N, L, P, P)
+    (``lead_eq``)."""
+    if lead_eq:
+        return torch.einsum("ilpq,ilqm->ilpm", xs, cl) * wlm
+    return torch.einsum("jlpq,ilqm->ijlpm", xs, cl) * wlm
+
+
+class _Chain(NamedTuple):
+    """A configuration's coefficients, their Jacobian and the pieces of
+    the chain through the power spectrum and the normalisation."""
+    r0: torch.Tensor  # (N, K, 3)
+    lone: torch.Tensor  # (N,)
+    praw: torch.Tensor  # (N, D) the unnormalized spectrum p~
+    nrm: torch.Tensor  # (N, 1) |p~|
+    p: torch.Tensor  # (N, D)
+    jfull: torch.Tensor  # (N, 2 S Q, K 3) dc / drvec, (Re|Im, s, q) rows
+    crl: torch.Tensor  # (N, L, S nf, L) per-l blocks of cR
+    cil: torch.Tensor
+    wlm: torch.Tensor  # (L, 1, L) the m weights
+
+
+def _coeff_chain(cfg: ConfigArrays, radii, params) -> _Chain:
+    """One forward launch, one one-hot backward launch, and the spectrum
+    in the configuration's type."""
+    n, kpad = cfg.nbr_idx.shape
+    S = radii.shape[0]
+    nf, L = params.nmax + 1, params.lmax + 1
+    P, Q = S * nf, nf * L * L
+    wd = cfg.positions.dtype
+    r0 = _env_rvec(cfg.positions, cfg.cell, cfg)
+    mask = cfg.nbr_mask & cfg.atom_mask[:, None]
+    sidx = cfg.nbr_sidx
+    cr, ci = soap_coeff_fwd(r0, sidx, mask, radii, params)
+    jc = coeff_jacobian(r0, sidx, mask, radii, params)  # (2, Q, n, K, 3)
+    within = mask & ((r0 * r0).sum(-1) < params.rc**2)
+    lone = cfg.atom_mask & ~within.any(dim=1)
+    shape = (n, S, nf, L, L)
+    praw = power_spectrum(cr.reshape(shape), ci.reshape(shape),
+                          dataclasses.replace(params, normalize=False))
+    if params.normalize:
+        eps = torch.finfo(wd).eps
+        nrm = torch.sqrt((praw * praw).sum(-1, keepdim=True) + eps * eps)
+    else:
+        nrm = torch.ones((n, 1), dtype=wd, device=praw.device)
+    # the full coefficient Jacobian: species s's channels see only the
+    # slots of species s
+    hot = (sidx.long()[:, None, :] == torch.arange(S, device=sidx.device)
+           [None, :, None]).to(wd)  # (n, S, K)
+    jfull = (jc.permute(2, 0, 1, 3, 4)[:, :, None]
+             * hot[:, None, :, None, :, None]).reshape(n, 2 * S * Q, kpad * 3)
+    w_lm, _ = _spectrum_constants(params, wd, cr.device)
+
+    def blocks(c):
+        return c.reshape(shape).permute(0, 3, 1, 2, 4).reshape(n, L, P, L)
+
+    return _Chain(r0, lone, praw, nrm, praw / nrm, jfull, blocks(cr),
+                  blocks(ci), w_lm[:, None, :])
+
+
+def _chain_vjp(ch: _Chain, xs, S, params, lead_eq):
+    """d(x . p~)/d(cR, cI) for ``_sym_blocks`` ``xs``, in the (Re|Im, s, n,
+    l, m) order of ``jfull``'s rows."""
+    nf, L = params.nmax + 1, params.lmax + 1
+
+    def to_coeff(g):  # (..., L, P, L) -> (..., S Q) in (s, n, l, m)
+        lead = g.shape[:-3]
+        g = g.reshape(*lead, L, S, nf, L)
+        g = g.permute(*range(len(lead)), -3, -2, -4, -1)
+        return g.reshape(*lead, S * nf * L * L)
+
+    return torch.cat([to_coeff(_spectrum_vjp(xs, ch.crl, ch.wlm, lead_eq)),
+                      to_coeff(_spectrum_vjp(xs, ch.cil, ch.wlm, lead_eq))],
+                     -1)
+
+
+def kernel_block_jac_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
+                        exponent, chunk=128):
+    """(Ke row, Kf block, Kv block) via the descriptor Jacobian.
+
+    Instead of one backward per inducing column (``kernel_block_fn``), the
+    coefficient Jacobian dc/drvec comes once from one launch of the
+    backward kernel with one-hot cotangents (``coeff_jacobian``), and
+    every column is matrix products through the bilinear power spectrum
+    and the normalisation:
+
+        W[i, j]    = zeta (p_i . x_j)^(zeta-1) delta(z_i, Z_j)
+        g_ij       = d(p_i . x_j)/dc_i = J_i^T (x_j - (p_i . x_j) p_i) / |p~_i|
+        dKe_j/dr_ik = W[i, j] g_ij . dc_i/dr_ik
+        Kf[b, :, j] = -(sum_{(i,k): idx[i,k]=b} - sum_{i=b}) dKe_j/dr_ik
+        Kv[j]       = sym(sum_{i,k} rvec[i,k] (x) dKe_j/dr_ik)
+
+    (the JAX package's ``kernel_block_jac_fn``, which takes the descriptor
+    Jacobian by forward mode).  SOAP dot kernel only: no pair terms, no
+    alchemical mixing, no other base kernel.  The products run in the
+    configuration's type, W in the Gram block's."""
+    n, kpad = cfg.nbr_idx.shape
+    S = radii.shape[0]
+    wd = cfg.positions.dtype
+    mcap = model.mu.shape[0]
+    m = int(model.m_mask.sum())
+    with torch.no_grad():
+        ch = _coeff_chain(cfg, radii, params)
+        gd = torch.promote_types(wd, model.X_desc.dtype)
+        dot = ch.p.to(gd) @ model.X_desc.to(gd).T  # (n, M)
+        same = (cfg.numbers[:, None] == model.X_num[None, :]).to(gd)
+        valid = same * (cfg.atom_mask[:, None] & model.m_mask[None, :]).to(gd)
+        lterm = (ch.lone[:, None] & model.X_lone[None, :]).to(gd)
+        ke = ((dot**exponent + lterm) * valid).sum(dim=0)
+        W = (exponent * dot ** (exponent - 1) * valid).to(wd)
+        dotw = dot.to(wd)
+        # J_i^T p~_i, once per row
+        bt = _chain_vjp(ch, _sym_blocks(ch.praw, S, params), S, params, True)
+        kf = torch.zeros((n, 3, mcap), dtype=wd, device=ch.p.device)
+        kv = torch.zeros((3, 3, mcap), dtype=wd, device=ch.p.device)
+        for lo in range(0, m, chunk):
+            sl = slice(lo, min(lo + chunk, m))
+            xs = _sym_blocks(model.X_desc[sl].to(wd), S, params)
+            a = _chain_vjp(ch, xs, S, params, False)
+            # g_ij = (J^T x_j - t_ij J^T p~_i / |p~_i|) / |p~_i|
+            g = (a - (dotw[:, sl] / ch.nrm)[..., None] * bt[:, None, :]) \
+                / ch.nrm[..., None]
+            g = g * W[:, sl, None]
+            rbar = torch.bmm(g, ch.jfull).reshape(n, -1, kpad, 3).transpose(0, 1)
+            f, v = _force_virial(rbar, ch.r0, cfg)
+            kf[..., sl] = f.permute(1, 2, 0)
+            kv[..., sl] = v.permute(1, 2, 0)
+    return ke, kf, kv
+
+
+@torch.no_grad()
+def descriptor_jacobian(cfg: ConfigArrays, radii, params):
+    """(p (N, D), lone (N,), dp/dpos (N, D, N, 3)) of a configuration: the
+    normalized (unmixed) descriptors and their full position Jacobian,
+    from the coefficient Jacobian of one one-hot backward-kernel launch
+    chained through the power spectrum and the normalisation.  O(N^2 D):
+    for the exact GP and the force-aware LML at small data sizes."""
+    n, kpad = cfg.nbr_idx.shape
+    S = radii.shape[0]
+    ch = _coeff_chain(cfg, radii, params)
+    p, nrm = ch.p, ch.nrm
+    D = p.shape[1]
+    # rows of d p~ / d c: the spectrum's vjp of every unit vector
+    eye = _sym_blocks(torch.eye(D, dtype=p.dtype, device=p.device), S, params)
+    jp = _chain_vjp(ch, eye, S, params, False)  # (n, D, 2 S Q)
+    if params.normalize:
+        jp = (jp - p[:, :, None] * torch.einsum("id,idc->ic", p, jp)[:, None]) \
+            / nrm[..., None]
+    jr = torch.bmm(jp, ch.jfull).reshape(n, D, kpad, 3)  # dp_i / d rvec_ik
+    mask = cfg.nbr_mask & cfg.atom_mask[:, None]
+    onehot = (cfg.nbr_idx.long()[..., None]
+              == torch.arange(n, device=p.device)).to(p.dtype) * mask[..., None]
+    jpos = torch.einsum("idkx,ikb->idbx", jr, onehot)
+    idx = torch.arange(n, device=p.device)
+    jpos[idx, :, idx, :] -= jr.sum(dim=2)
+    return p, ch.lone, jpos
+
+
+def jac_bytes(npad, kpad, nspecies, params, esize, chunk=128):
+    """Device bytes of ``kernel_block_jac_fn``'s largest intermediates:
+    the one-hot launch's cotangents and output, the full coefficient
+    Jacobian, and one chunk's coefficient gradients."""
+    L = params.lmax + 1
+    Q = (params.nmax + 1) * L * L
+    ch2 = 2 * nspecies * Q
+    onehot = 2 * Q * npad * (2 * nspecies * Q + kpad * 3)
+    jfull = npad * ch2 * kpad * 3
+    per_chunk = 3 * npad * chunk * ch2
+    return esize * (onehot + jfull + per_chunk)
 
 
 # --------------------------------------------------------------------------
@@ -375,19 +775,24 @@ class Engine:
     def __init__(self, params: SoapParams = None, exponent=4, radii=None,
                  species=None, dtype=None, device="cuda", pair_terms=(),
                  chemical=None, mesh=None, kernel=None):
-        if pair_terms:
-            raise NotImplementedError("pair terms are not ported yet")
-        if chemical:
-            raise NotImplementedError("alchemical kernels are not ported yet")
         if mesh is not None:
             raise NotImplementedError("the device mesh is not ported yet")
-        if kernel not in (None, "dot"):
-            raise NotImplementedError(f"kernel {kernel!r} is not ported yet")
         self.params = params or SoapParams()
         self.exponent = int(exponent)
         self.radii = as_radii(radii if radii is not None else 1.0)
         self.species = sorted(int(z) for z in (species or []))
+        self.pair_terms = tuple(pair_terms)
+        self.pair_kx = 16  # pair-distance buffer bucket (grow_pair_kx)
         self.env_kpad = 8  # sticky env-staging neighbor bucket (make_envs)
+        # alchemical species similarity: None -> Dirac delta; 'rbf' ->
+        # element-embedding RBF (chemical.py)
+        self.chemical = chemical
+        # base kernel on descriptors: 'dot' (DotProd**zeta, default), 'rbf',
+        # 'normed', or any composable KernelExpr (kernelalgebra.py)
+        self.kernel_kind = kernel if kernel is not None else "dot"
+        if not (isinstance(self.kernel_kind, KernelExpr)
+                or self.kernel_kind in ("dot", "rbf", "normed")):
+            raise ValueError(f"unknown kernel kind {self.kernel_kind!r}")
         self.device = resolve_device(device)
         # float32 is the working type of configurations and descriptors on
         # the card (as on the TPU).  The model state (inducing descriptors,
@@ -399,13 +804,61 @@ class Engine:
         # stored in float32; float32 restaging adds a few times more.
         self.dtype = dtype if dtype is not None else torch.float32
         self.model_dtype = torch.float64
+        self._tables = {}  # species tuple -> (znum, chem_z, mixL) on device
+
+    def clone_config(self):
+        """A fresh Engine with the same kernel configuration (params,
+        exponent, radii, species, pair terms, chemical, base kernel, device
+        and types)."""
+        eng = Engine(params=self.params, exponent=self.exponent,
+                     radii=self.radii, species=list(self.species),
+                     dtype=self.dtype, device=self.device,
+                     pair_terms=self.pair_terms, chemical=self.chemical,
+                     kernel=self.kernel_kind if self.kernel_kind != "dot" else None)
+        eng.pair_kx = self.pair_kx
+        eng.env_kpad = self.env_kpad
+        return eng
+
+    @property
+    def plain_kernel(self):
+        """The normalized SOAP dot kernel alone (k(x, x) = 1)."""
+        return (not self.pair_terms and not self.chemical
+                and self.kernel_kind == "dot")
+
+    def _species_tables(self):
+        """(znum, chem_z, mixL) of the current species table on the device,
+        uploaded once per table."""
+        key = tuple(self.species)
+        if key not in self._tables:
+            table = self.species if self.species else [0]
+            znum = self._tensor(np.asarray(table, dtype=np.int32))
+            chem_z = mixL = None
+            if self.chemical:
+                from .chemical import chem_rbf_table, mixing_cholesky
+
+                chem_z = self._tensor(chem_rbf_table(), self.model_dtype)
+                mixL = self._tensor(mixing_cholesky(table), self.model_dtype)
+            self._tables[key] = (znum, chem_z, mixL)
+        return self._tables[key]
+
+    def chem_args(self):
+        """(chem_z table, per-table mixing cholesky) or (None, None)."""
+        return self._species_tables()[1:]
+
+    def kernel_space(self):
+        """The :class:`KernelSpace` the device functions take (None for
+        the plain dot kernel)."""
+        if self.plain_kernel:
+            return None
+        znum, chem_z, mixL = self._species_tables()
+        return KernelSpace(znum=znum, pair_terms=self.pair_terms,
+                           chem_z=chem_z, mixL=mixL, kind=self.kernel_kind)
 
     def _tensor(self, a, dtype=None):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
     def znum_table(self):
-        table = self.species if self.species else [0]
-        return self._tensor(np.asarray(table, dtype=np.int32))
+        return self._species_tables()[0]
 
     # -------------------------------------------------------------- species
     @property
@@ -537,27 +990,48 @@ class Engine:
 
     # ---------------------------------------------------------- computations
     def descriptors(self, cfg: ConfigArrays):
-        return descriptors_fn(cfg, self.radii_table(), self.params)
+        """Per-LCE descriptors (alchemically mixed when chemical is on)."""
+        p, lone = descriptors_fn(cfg, self.radii_table(), self.params)
+        _, mixL = self.chem_args()
+        return _chem_mix(p, mixL, len(self.species) or 1), lone
+
+    def pair_self(self, cfg: ConfigArrays):
+        """Per-LCE pair-term share of k(x, x) (zeros without pair terms)."""
+        return pair_self_fn(cfg, self.kernel_space() or PLAIN)
 
     def env_descriptors(self, envs: EnvArrays):
         radii = self.radii_table().to(envs.rvec.dtype)
-        return env_descriptors_fn(envs, radii, self.params)
+        _, mixL = self.chem_args()
+        return env_descriptors_fn(envs, radii, self.params, mixL=mixL)
 
     def predict(self, cfg: ConfigArrays, model: ModelArrays, vscale_atom):
         vs = self._tensor(np.asarray(vscale_atom, dtype=np.float64), self.dtype)
         return predict_fn(cfg, model, self.radii_table(), vs, self.params,
-                          self.exponent)
+                          self.exponent, ks=self.kernel_space())
 
     def gram_self(self, cfg: ConfigArrays):
-        return gram_self_fn(cfg, self.radii_table(), self.params, self.exponent)
+        return gram_self_fn(cfg, self.radii_table(), self.params, self.exponent,
+                            ks=self.kernel_space())
 
-    def kernel_cols_multi(self, cfg_list, x_descs, x_nums, x_lones):
+    def _env_pairs(self, B, x_pds, x_pms):
+        """Pair sets (B, T, KX) on the device (empty ones when not given)."""
+        if not self.pair_terms:
+            return None, None
+        if x_pds is None:
+            x_pds = np.zeros((B, len(self.pair_terms), self.pair_kx))
+            x_pms = np.zeros(x_pds.shape, dtype=bool)
+        return (self._tensor(np.asarray(x_pds), self.model_dtype),
+                self._tensor(np.asarray(x_pms, dtype=bool)))
+
+    def kernel_cols_multi(self, cfg_list, x_descs, x_nums, x_lones,
+                          x_pds=None, x_pms=None):
         """(ke, kf, kv) of a batch of inducing envs against a list of
         same-bucket configurations, output axes (env, config, ...).
 
         ``x_descs`` / ``x_lones`` may be device tensors (fresh staging
         outputs): they are consumed without a host sync, so callers can
-        chain staging -> columns -> one device_fetch."""
+        chain staging -> columns -> one device_fetch.  ``x_pds`` /
+        ``x_pms``: the envs' staged pair distances (B, T, KX)."""
         if isinstance(x_descs, torch.Tensor):
             desc = x_descs.to(self.device, self.model_dtype)
         else:
@@ -567,37 +1041,85 @@ class Engine:
         else:
             lone = self._tensor(np.asarray(x_lones, dtype=bool))
         num = self._tensor(np.asarray(x_nums, dtype=np.int32))
+        pd, pm = self._env_pairs(len(num), x_pds, x_pms)
         return kernel_cols_multi_fn(list(cfg_list), desc, num, lone,
                                     self.radii_table(), self.params,
-                                    self.exponent)
+                                    self.exponent, ks=self.kernel_space(),
+                                    x_pd=pd, x_pm=pm)
 
-    def kernel_col_batch(self, cfg_list, x_desc, x_num, x_lone):
+    def kernel_col_batch(self, cfg_list, x_desc, x_num, x_lone, x_pd=None,
+                         x_pm=None):
         """(ke (B,), kf (B, N, 3), kv (B, 3, 3)) of one inducing env
         against a list of same-bucket configurations."""
         ke, kf, kv = self.kernel_cols_multi(
-            cfg_list, np.asarray(x_desc)[None], [x_num], [bool(x_lone)])
+            cfg_list, np.asarray(x_desc)[None], [x_num], [bool(x_lone)],
+            x_pds=None if x_pd is None else np.asarray(x_pd)[None],
+            x_pms=None if x_pm is None else np.asarray(x_pm)[None])
         return ke[0], kf[0], kv[0]
 
-    def kernel_col(self, cfg: ConfigArrays, x_desc, x_num, x_lone):
+    def kernel_col(self, cfg: ConfigArrays, x_desc, x_num, x_lone, x_pd=None,
+                   x_pm=None):
         """(ke, kf (N, 3), kv (3, 3)) of one inducing env against one
         configuration."""
-        ke, kf, kv = self.kernel_col_batch([cfg], x_desc, x_num, x_lone)
+        ke, kf, kv = self.kernel_col_batch([cfg], x_desc, x_num, x_lone,
+                                           x_pd, x_pm)
         return ke[0], kf[0], kv[0]
 
+    # the Jacobian route's intermediates may take at most this many bytes
+    # (a fifth of the H100's 80 GB)
+    JAC_BYTES_CAP = 16e9
+
     def kernel_block(self, cfg: ConfigArrays, model: ModelArrays,
-                     batch_size=64):
+                     batch_size=64, method="auto"):
         """(Ke (M,), Kf (N, 3, M), Kv (3, 3, M)) of a configuration against
-        the inducing set.  Only the column route exists here: the JAX
-        package's Jacobian route (``kernel_block_jac_fn``, forward mode
-        through the descriptor) is not ported, and it gives the same
-        numbers."""
+        the inducing set.  ``method``: "vjp" (the column route,
+        ``kernel_block_fn``), "jac" (the descriptor Jacobian,
+        ``kernel_block_jac_fn``; the plain dot kernel only) or "auto": the
+        JAX package's rule, the Jacobian for the plain dot kernel once
+        m >= 64 while its intermediates stay under ``JAC_BYTES_CAP``."""
+        if method == "auto":
+            m = int(model.m_mask.sum())
+            nbytes = jac_bytes(cfg.npad, cfg.nbr_idx.shape[1],
+                               max(self.nspecies, 1), self.params,
+                               cfg.positions.element_size())
+            method = ("jac" if self.plain_kernel and m >= 64
+                      and nbytes < self.JAC_BYTES_CAP else "vjp")
+        if method == "jac":
+            if not self.plain_kernel:
+                raise ValueError("the Jacobian route serves the plain dot "
+                                 "kernel only (no pair terms, chemical or "
+                                 "other kinds)")
+            return kernel_block_jac_fn(cfg, model, self.radii_table(),
+                                       self.params, self.exponent)
+        if method != "vjp":
+            raise ValueError(f"unknown kernel_block method {method!r}")
         return kernel_block_fn(cfg, model, self.radii_table(), self.params,
-                               self.exponent, batch_size=batch_size)
+                               self.exponent, batch_size=batch_size,
+                               ks=self.kernel_space())
+
+    def grow_pair_kx(self, env):
+        """Grow the pair buffer bucket to fit this env (rare host event)."""
+        from .pairkernels import env_pair_counts
+
+        need = max(env_pair_counts(env, self.pair_terms) + [1])
+        if need > self.pair_kx:
+            self.pair_kx = round_up(need, 8)
+            return True
+        return False
+
+    def env_pair_data(self, env):
+        """Host: padded pair distances for one env (all pair terms)."""
+        if not self.pair_terms:
+            return None, None
+        self.grow_pair_kx(env)
+        return stage_env_pairs(env, self.pair_terms, self.pair_kx)
 
     # ------------------------------------------------------------ model sync
-    def model_arrays(self, X_desc, X_num, X_lone, mu, choli, mcap=None) -> ModelArrays:
+    def model_arrays(self, X_desc, X_num, X_lone, mu, choli, mcap=None,
+                     envs=None) -> ModelArrays:
         """Pad host model state to the inducing-capacity bucket, on the
-        device in ``model_dtype``."""
+        device in ``model_dtype``; with pair terms, ``envs`` (the inducing
+        environments) give the staged pair distances."""
         m = len(X_num)
         mcap = mcap or max(32, round_up(max(m, 1), 32))
         D = X_desc.shape[1] if m else self.dim
@@ -614,6 +1136,16 @@ class Engine:
             mm[:m] = True
             muv[:m] = mu
             ch[:m, :m] = choli
+        pair_d = pair_mask = None
+        if self.pair_terms:
+            T = len(self.pair_terms)
+            pd = np.zeros((T, mcap, self.pair_kx))
+            pm = np.zeros((T, mcap, self.pair_kx), dtype=bool)
+            for i, env in enumerate(envs or []):
+                pd[:, i], pm[:, i] = stage_env_pairs(env, self.pair_terms,
+                                                     self.pair_kx)
+            pair_d = self._tensor(pd, self.model_dtype)
+            pair_mask = self._tensor(pm)
         return ModelArrays(
             X_desc=self._tensor(Xd, self.model_dtype),
             X_num=self._tensor(Xn),
@@ -621,4 +1153,6 @@ class Engine:
             m_mask=self._tensor(mm),
             mu=self._tensor(muv, self.model_dtype),
             choli=self._tensor(ch, self.model_dtype),
+            pair_d=pair_d,
+            pair_mask=pair_mask,
         )

@@ -5,7 +5,8 @@ fields as this package's; given them as numpy arrays (for example from
 ``SgprModel.full_model_arrays()`` and ``Engine.make_config``), these
 functions build the torch counterparts, so both packages can compute on
 identical inputs.  ``sgpr_model_from_jax`` carries a whole trained (or
-learning) model.  Nothing here imports the JAX package: its objects are
+learning) model, its kernel space (pair terms, chemical, kernel
+expression) included.  Nothing here imports the JAX package: its objects are
 read through their numpy fields.
 """
 
@@ -22,9 +23,10 @@ def _t(a, device, dtype=None):
 
 
 def model_arrays_from_numpy(X_desc, X_num, X_lone, mu, choli, device,
-                            dtype, m_mask=None):
+                            dtype, m_mask=None, pair_d=None, pair_mask=None):
     """Padded ``ModelArrays`` on ``device``; ``m_mask`` defaults to the
-    rows with a central atomic number (padding rows carry 0)."""
+    rows with a central atomic number (padding rows carry 0); ``pair_d`` /
+    ``pair_mask``: the staged pair distances (T, M, KX), if any."""
     if m_mask is None:
         m_mask = np.asarray(X_num) != 0
     return ModelArrays(
@@ -34,7 +36,28 @@ def model_arrays_from_numpy(X_desc, X_num, X_lone, mu, choli, device,
         m_mask=_t(np.asarray(m_mask, dtype=bool), device),
         mu=_t(mu, device, dtype),
         choli=_t(choli, device, dtype),
+        pair_d=None if pair_d is None else _t(pair_d, device, dtype),
+        pair_mask=None if pair_mask is None else _t(
+            np.asarray(pair_mask, dtype=bool), device),
     )
+
+
+def pair_terms_from_jax(terms):
+    """This package's ``PairTerm`` tuple from the JAX package's (read
+    through their fields)."""
+    from ..pairkernels import PairTerm
+
+    return tuple(PairTerm(**vars(t)) for t in terms)
+
+
+def kernel_from_jax(kind):
+    """This package's base kernel from the JAX package's: string kinds as
+    they are, a ``KernelExpr`` through its ``state`` string."""
+    if isinstance(kind, str) or kind is None:
+        return kind
+    from ..kernelalgebra import from_state
+
+    return from_state(kind.state)
 
 
 def config_from_numpy(positions, cell, numbers, atom_mask, nbr_idx, nbr_off,
@@ -84,11 +107,11 @@ def sgpr_model_from_jax(jmodel, device, dtype=None):
         params=SoapParams(lmax=p.lmax, nmax=p.nmax, rc=p.rc, cut_n=p.cut_n,
                           normalize=p.normalize),
         exponent=je.exponent, radii=radii, species=list(je.species),
-        dtype=dtype, device=device, pair_terms=tuple(je.pair_terms),
-        chemical=je.chemical,
-        kernel=None if je.kernel_kind == "dot" else je.kernel_kind,
+        dtype=dtype, device=device, pair_terms=pair_terms_from_jax(je.pair_terms),
+        chemical=je.chemical, kernel=kernel_from_jax(je.kernel_kind),
     )
     engine.env_kpad = je.env_kpad
+    engine.pair_kx = je.pair_kx
     model = SgprModel(engine)
     for x in jmodel.X:
         env = InducingEnv.from_arrays(x.number, np.array(x.rvec),

@@ -20,9 +20,25 @@ import numpy as np
 from ..descriptor.radial import DefaultRadii, RadiiFromDict, UniformRadii
 from ..descriptor.soap import SoapParams
 from ..engine import Engine
+from ..kernelalgebra import KernelExpr, from_state
+from ..pairkernels import PairTerm
 from ..regression.sgpr import DataRecord, InducingEnv, SgprModel
 from ..system import SinglePointCalculator
 from .xyz import read_xyz, write_xyz
+
+
+def _kernel_state(kind):
+    """Serialize the base kernel: plain string kinds as-is, a KernelExpr as
+    its eval-able state string."""
+    if isinstance(kind, KernelExpr):
+        return {"expr": kind.state}
+    return kind
+
+
+def _kernel_from_state(st):
+    if isinstance(st, dict) and "expr" in st:
+        return from_state(st["expr"])
+    return st if st is not None else "dot"
 
 
 def _radii_state(radii):
@@ -61,9 +77,9 @@ def save_model(model: SgprModel, folder):
         "exponent": eng.exponent,
         "species": eng.species,
         "radii": _radii_state(eng.radii),
-        "pair_terms": [],
-        "chemical": None,
-        "kernel_kind": "dot",
+        "pair_terms": [vars(t) for t in eng.pair_terms],
+        "chemical": eng.chemical,
+        "kernel_kind": _kernel_state(eng.kernel_kind),
         "noise_state": {str(k): float(v) for k, v in model.noise_state.items()},
         "scaled_noise": {str(k): float(v) for k, v in model.scaled_noise.items()},
         "mean_weights": {str(k): float(v) for k, v in model.mean_weights.items()},
@@ -121,9 +137,9 @@ def load_model(folder, device="cuda", dtype=None) -> SgprModel:
         species=meta["species"],
         dtype=dtype,
         device=device,
-        pair_terms=tuple(meta.get("pair_terms", [])),
+        pair_terms=tuple(PairTerm(**t) for t in meta.get("pair_terms", [])),
         chemical=meta.get("chemical"),
-        kernel=meta.get("kernel_kind"),
+        kernel=_kernel_from_state(meta.get("kernel_kind")),
     )
     model = SgprModel(engine)
     with np.load(os.path.join(folder, "arrays.npz")) as arr:

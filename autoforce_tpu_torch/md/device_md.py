@@ -84,14 +84,16 @@ def _nhc_half(KE2, vxi, xi, Q, kT, dof, dt, nc=2):
 
 
 def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                 check_beta):
+                 check_beta, ks=None):
     """(energy, forces, beta_max) of one configuration under one SGPR
-    model — the physics of the device MD step (predict_fn minus virial)."""
+    model — the physics of the device MD step (predict_fn minus virial);
+    ``ks``: the engine's kernel space (None: the plain dot kernel)."""
     with torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         cov, lone, alpha = _total_cov(
             p, cfg.cell, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True,
+            radii, params, exponent, use_rev=True, ks=ks,
+            pair_d=model.pair_d, pair_mask=model.pair_mask,
         )
         cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
         e = (cov @ model.mu).sum()
@@ -107,7 +109,7 @@ def _beta_max(cov, cfg, model, vscale_atom, alpha, check_beta, pos):
     if not check_beta:
         return torch.zeros((), dtype=pos.dtype, device=pos.device)
     beta = covloss_beta(model.choli, cov, vscale_atom, model.m_mask,
-                        alpha=alpha)
+                        alpha=alpha.detach())
     return torch.where(cfg.atom_mask, beta,
                        torch.full_like(beta, -math.inf)).max()
 
@@ -430,6 +432,7 @@ def md_chunk(
     nhc_dof=None,  # 3 * n_real
     nhc_vxi=None,  # (3,) chain velocities (carried across chunks)
     nhc_xi=None,  # (3,) chain positions
+    ks=None,  # the engine's kernel space (Engine.kernel_space())
 ):
     """Run up to ``nsteps`` MD steps on the device; early-exit on a skin
     breach or the uncertainty threshold.
@@ -444,7 +447,7 @@ def md_chunk(
 
     def forces_fn(pos, tbl):
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta)
+                            params, exponent, check_beta, ks)
 
     nhc = None
     if thermostat == "nhc":
@@ -479,7 +482,7 @@ def new_chain(calc, system, check_beta):
     """Device state shared by a chain of chunks of any device driver, from
     the calculator's current configuration: the config, model arrays,
     radii, uncertainty scale, masses, the table's build origin and the
-    in-loop rebuild's species tables and cutoff."""
+    in-loop rebuild's species tables and cutoff, and the kernel space."""
     eng = calc.engine
     cfg = calc.cfg
     dtype, dev = cfg.positions.dtype, cfg.positions.device
@@ -508,6 +511,7 @@ def new_chain(calc, system, check_beta):
         sidx_ok=t(sidx >= 0, torch.bool),
         cut=eng.params.rc + calc._nlcache.skin,
         beta_thresh=calc.ediff if check_beta else np.inf,
+        ks=eng.kernel_space(),
     )
 
 
@@ -631,7 +635,7 @@ class DeviceMD:
                 check_beta=self.check_beta, thermostat=self.thermostat,
                 rebuild=inloop, rebuild_cut=chain["cut"],
                 sidx_atom=chain["sidx_atom"], sidx_ok=chain["sidx_ok"],
-                seed=self.seed, step0=self.nsteps, **nhc_kw,
+                seed=self.seed, step0=self.nsteps, ks=chain["ks"], **nhc_kw,
             )
             pos, vel, f, e, beta_max, i = out[:6]
             if inloop:

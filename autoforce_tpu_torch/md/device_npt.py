@@ -128,7 +128,7 @@ def _min_perp_width(cell):
 
 
 def _sgpr_forces_virial(pos, cell, cfg, model, radii, vscale_atom, params,
-                        exponent, check_beta, aniso=False):
+                        exponent, check_beta, aniso=False, ks=None):
     """(energy, forces, dE/deps, beta_max) with eps a strain of positions
     and cell together, from ONE backward pass shared with the forces.
 
@@ -147,7 +147,8 @@ def _sgpr_forces_virial(pos, cell, cfg, model, radii, vscale_atom, params,
             p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
         cov, lone, alpha = _total_cov(
             p_s, cell_s, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True,
+            radii, params, exponent, use_rev=True, ks=ks,
+            pair_d=model.pair_d, pair_mask=model.pair_mask,
         )
         cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
         e = (cov @ model.mu).sum()
@@ -195,6 +196,7 @@ def md_chunk_npt(
     bch_dof=None,  # cell-chain dof (aniso: count_nonzero(mask))
     tbl_cell=None,  # (3, 3) cell the incoming table was built with
     offmax=None,  # max Sum|off| of the incoming table
+    ks=None,  # the engine's kernel space (Engine.kernel_space())
 ):
     """Up to ``nsteps`` MTK NPT steps on the device; early exit on a skin
     breach or an uncertainty trip.  The exact Trotter splitting of
@@ -211,7 +213,7 @@ def md_chunk_npt(
     def forces_fn(pos, cell, tbl):
         return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
                                    vscale_atom, params, exponent, check_beta,
-                                   aniso=aniso)
+                                   aniso=aniso, ks=ks)
 
     if tbl_cell is None:
         tbl_cell = cfg.cell  # host build: cfg.cell IS the table cell
@@ -531,7 +533,7 @@ class DeviceNPT:
                 mask=chain["mask"],
                 bch_dof=None if self.isotropic else self.ncell,
                 tbl_cell=chain["tbl_cell"], offmax=chain["offmax"],
-                **inloop_kw,
+                ks=chain["ks"], **inloop_kw,
             )
             pos, vel, cell, f, e, beta_max, i = out[:7]
             self._dev_state = out[7:12]

@@ -94,6 +94,7 @@ def fire_chunk(
     rebuild_cut=None,
     sidx_atom=None,
     sidx_ok=None,
+    ks=None,  # the engine's kernel space (Engine.kernel_space())
 ):
     """Up to ``nsteps`` FIRE steps on the device; early exit on
     convergence (fmax < fmax_target, checked before stepping like
@@ -106,7 +107,7 @@ def fire_chunk(
 
     def forces_fn(pos, tbl):
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta)
+                            params, exponent, check_beta, ks)
 
     with torch.no_grad():
         st = _fire_loop(
@@ -202,6 +203,7 @@ def fire_cell_chunk(
     rebuild_cut=None,
     sidx_atom=None,
     sidx_ok=None,
+    ks=None,
 ):
     """Variable-cell FIRE on the device: the exact opt/filters.
     UnitCellFilter + opt/fire.FIRE composition — positions in the
@@ -220,7 +222,7 @@ def fire_cell_chunk(
     def forces_fn(pos, cell, tbl):
         return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
                                    vscale_atom, params, exponent, check_beta,
-                                   aniso=True)
+                                   aniso=True, ks=ks)
 
     with torch.no_grad():
         st = _fire_cell_loop(
@@ -481,7 +483,7 @@ class DeviceFIRE:
             common = (t(self.dt_cur), t(self.a), t(self.n_uphill), 0.5 * calc._nlcache.skin, fmax,
                       chain["beta_thresh"], n)
             kw = dict(params=eng.params, exponent=eng.exponent,
-                      check_beta=self.check_beta, **inloop_kw)
+                      check_beta=self.check_beta, ks=chain["ks"], **inloop_kw)
             if self.cell:
                 out = fire_cell_chunk(
                     chain["cfg"], chain["ma"], chain["radii"], chain["vs"],

@@ -60,16 +60,18 @@ def stack_images(cfgs):
 
 
 def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                check_beta):
+                check_beta, ks=None):
     """(e (R,), f (R, N, 3), beta_max (R,)) of R images of N rows each,
     ``pos`` (R, N, 3), stacked in ``cfg`` (:func:`stack_images`): one
-    forward and one backward kernel launch for all of them."""
+    forward and one backward kernel launch for all of them; ``ks``: the
+    engine's kernel space."""
     R, N = pos.shape[:2]
     with torch.enable_grad():
         p = pos.detach().reshape(R * N, 3).requires_grad_(True)
         cov, lone, alpha = _total_cov(
             p, cfg.cell, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True,
+            radii, params, exponent, use_rev=True, ks=ks,
+            pair_d=model.pair_d, pair_mask=model.pair_mask,
         )
         cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
         e = (cov @ model.mu).reshape(R, N).sum(1)
@@ -77,7 +79,7 @@ def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
     f = (-g * cfg.atom_mask[:, None]).reshape(R, N, 3)
     if check_beta:
         beta = covloss_beta(model.choli, cov.detach(), vscale_atom,
-                            model.m_mask, alpha=alpha)
+                            model.m_mask, alpha=alpha.detach())
         beta = torch.where(cfg.atom_mask, beta,
                            torch.full_like(beta, -math.inf))
         bmax = beta.reshape(R, N).max(1).values
@@ -109,6 +111,7 @@ def neb_chunk(
     exponent=4,
     check_beta=True,
     climb=False,
+    ks=None,  # the engine's kernel space (Engine.kernel_space())
 ):
     """Up to ``nsteps`` band-FIRE iterations on the device; early exit on
     band convergence (max interior |F_neb| < fmax_target, checked before
@@ -118,7 +121,7 @@ def neb_chunk(
 
     def forces_int(p):
         return band_forces(p, cfg, model, radii, vscale_atom, params,
-                           exponent, check_beta)
+                           exponent, check_beta, ks)
 
     amask = cfg.atom_mask[: pos.shape[1], None]  # images share the system
     with torch.no_grad():
@@ -295,10 +298,11 @@ class DeviceNEB:
         vs_t = torch.as_tensor(vs, dtype=dtype, device=dev)
         ends = stack_images([cfgs[0], cfgs[-1]])
         pos = torch.stack([c.positions for c in cfgs])
+        ks = eng.kernel_space()
         with torch.no_grad():
             e_end, _, b_end = band_forces(
                 pos[[0, -1]], ends, ma, eng.radii_table(), vs_t.repeat(2),
-                eng.params, eng.exponent, self.check_beta)
+                eng.params, eng.exponent, self.check_beta, ks)
         varr = np.zeros((R, self._npad, 3))
         if self._v is not None:
             varr[:, :n0] = self._v
@@ -314,6 +318,7 @@ class DeviceNEB:
             v=torch.as_tensor(varr, dtype=dtype, device=dev),
             pos0=pos,
             beta_thresh=calc.ediff if self.check_beta else np.inf,
+            ks=ks,
         )
 
     def _sync_host(self, pos):
@@ -394,7 +399,7 @@ class DeviceNEB:
                 0.5 * calc._nlcache.skin, fmax, chain["beta_thresh"], n,
                 self.k, self.params, params=eng.params,
                 exponent=eng.exponent, check_beta=self.check_beta,
-                climb=self.climb,
+                climb=self.climb, ks=chain["ks"],
             )
             # one host read for every boundary scalar
             dtc, a, nu, i_h, fm_h, bm_h = (float(x) for x in device_fetch(

@@ -1,5 +1,5 @@
 """Sparse Gaussian process potential: host model state + incremental updates
-(port of ``autoforce_tpu/regression/sgpr.py``, SOAP dot kernel only).
+(port of ``autoforce_tpu/regression/sgpr.py``).
 
 The counterpart of the reference's ``PosteriorPotential``
 (theforce/regression/gppotential.py:453-1175).  All covariance *blocks*
@@ -16,9 +16,10 @@ descriptors are staged in ``Engine.model_dtype`` (float64) by every path
 (``restage``, ``stage_env``, ``stage_envs``, ``precompute_column_blocks``),
 so an environment gives the same row of M whichever path staged it.
 
-The JAX package's pair terms, alchemical mixing and kernel expressions
-are not ported: the port's Engine refuses them, so every kernel here is
-``delta(z, z') (p . x)^zeta`` plus the lone-atom term.
+The kernel is the engine's kernel space: the base kernel (``"dot"``,
+``"rbf"``, ``"normed"`` or a ``KernelExpr``), the alchemical central
+factor, and pair terms, whose staged distances of the inducing set
+(``pair_stage``) are cached until the set changes.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..engine import Engine, device_fetch, voigt6
+from ..kernelalgebra import KernelExpr
 from ..system import System
 from . import solver
 
@@ -112,6 +114,7 @@ class SgprModel:
         # fingerprints.
         self.state_version = 0
         self._model_arrays = None
+        self._pair_stage = None
         self._xdiag = None
         self._xstack = None
         self._fvqr = None
@@ -187,6 +190,7 @@ class SgprModel:
         for rec in self.data:
             rec.cfg = self.engine.make_config(rec.system)
         self._model_arrays = None
+        self._pair_stage = None
         self._xdiag = None
         self._xstack = None
         self._fvqr = None
@@ -222,17 +226,61 @@ class SgprModel:
         self._stage([e for e in envs if e.desc is None])
         return envs
 
+    def _chem_table(self):
+        if getattr(self, "_chem_np", None) is None:
+            from ..chemical import chem_rbf_table
+
+            self._chem_np = chem_rbf_table()
+        return self._chem_np
+
+    def _central(self, za, zb):
+        if self.engine.chemical:
+            return float(self._chem_table()[za, zb])
+        return 1.0 if za == zb else 0.0
+
     def _base_kernel(self, dot):
+        kind = self.engine.kernel_kind
+        if isinstance(kind, KernelExpr):
+            return np.asarray(kind.value(dot, xp=np))
+        if kind == "rbf":
+            return np.exp(dot - 1.0)
+        if kind == "normed":
+            return dot
         return dot**self.engine.exponent
 
     def kern_env_env(self, a: InducingEnv, b: InducingEnv):
         """Host kernel between two staged environments."""
-        if a.number != b.number:
-            return 0.0
-        k = self._base_kernel(float(np.dot(a.desc, b.desc)))
-        if a.lone and b.lone:
+        c = self._central(a.number, b.number)
+        k = c * self._base_kernel(float(np.dot(a.desc, b.desc)))
+        if a.lone and b.lone and a.number == b.number:
             k += 1.0
-        return k
+        kind = self.engine.kernel_kind
+        if a is b and isinstance(kind, KernelExpr):
+            # same-environment White variance (true diagonal only)
+            k += float(kind.white_diag(xp=np))
+        if self.engine.pair_terms:
+            from ..pairkernels import pair_kernel_envs_np
+
+            k += pair_kernel_envs_np(a, b, self.engine.pair_terms)
+        return float(k)
+
+    def pair_stage(self):
+        """Cached (T, m, kx) pair distances/masks of the inducing set
+        (invalidated whenever X changes)."""
+        if self._pair_stage is None:
+            from ..pairkernels import stage_env_pairs
+
+            terms = self.engine.pair_terms
+            for x in self.X:
+                self.engine.grow_pair_kx(x)
+            kx = self.engine.pair_kx
+            T = len(terms)
+            d = np.zeros((T, self.m, kx))
+            mm = np.zeros((T, self.m, kx), dtype=bool)
+            for i, x in enumerate(self.X):
+                d[:, i], mm[:, i] = stage_env_pairs(x, terms, kx)
+            self._pair_stage = (d, mm)
+        return self._pair_stage
 
     # ------------------------------------------------ incremental QR cache
     # economy QR of the stacked force/virial block K_fv = [Kf; Kv]
@@ -352,10 +400,12 @@ class SgprModel:
             # factor cannot project — report degeneracy, callers drop the
             # cache / take the exact path
             return None
-        if not np.all(np.isfinite(r)):
+        if not (np.all(np.isfinite(r)) and np.all(np.isfinite(q))):
             return None
         rho = float(np.linalg.norm(q))
-        if rho < 1e-8 * cn:
+        if not (np.isfinite(rho) and rho >= 1e-8 * cn):
+            # also an overflowed residual (R near singular): the JAX
+            # package's code carries the inf into R; here the cache drops
             return None
         zeta = float((q / rho) @ qr["y"])
         return r, rho, zeta
@@ -661,7 +711,7 @@ class SgprModel:
         column work the slow path does, computed once."""
         if env.desc is None:
             self.stage_env(env)
-        blocks = self._column_blocks(env)
+        blocks = self._column_blocks(env, *self.engine.env_pair_data(env))
         ke_col, kf_col, kv_col = blocks
         kf_flat = np.concatenate(kf_col).reshape(-1)
         kv_flat = np.concatenate(kv_col).reshape(-1)
@@ -754,9 +804,19 @@ class SgprModel:
         if self.m == 0:
             return np.zeros(0)
         Xd, zs, lo = self._xstack_arrs()
-        central = (zs == env.number).astype(np.float64)
+        if self.engine.chemical:
+            central = self._chem_table()[zs, env.number]
+        else:
+            central = (zs == env.number).astype(np.float64)
         col = self._base_kernel(Xd @ env.desc) * central
         col = col + ((lo & env.lone) & (zs == env.number)) * 1.0
+        if self.engine.pair_terms:
+            from ..pairkernels import pair_kernel_env_vs_stage_np
+
+            d2, m2 = self.pair_stage()
+            col = col + pair_kernel_env_vs_stage_np(
+                env, d2, m2, self.engine.pair_terms
+            )
         return col
 
     # --------------------------------------------------- incremental updates
@@ -827,6 +887,18 @@ class SgprModel:
         )
         if cache_bytes > 256 * 1024 * 1024 or len(self._colcache) > 256:
             self._colcache.clear()
+        if eng.pair_terms:
+            from ..pairkernels import stage_env_pairs
+
+            for e in envs:
+                eng.grow_pair_kx(e)
+            # host-only inputs (rvec/numbers) — valid for unstaged envs
+            pstage = [stage_env_pairs(e, eng.pair_terms, eng.pair_kx)
+                      for e in envs]
+            x_pds = np.stack([s[0] for s in pstage])
+            x_pms = np.stack([s[1] for s in pstage])
+        else:
+            x_pds = x_pms = None
 
         def _desc_row(e):
             if e.desc is not None:
@@ -849,6 +921,8 @@ class SgprModel:
             descs = torch.stack([_desc_row(e) for e in ev])
             lones = torch.stack([_lone_row(e) for e in ev])
             nums = [e.number for e in ev]
+            pd = x_pds[echunk] if x_pds is not None else None
+            pm = x_pms[echunk] if x_pms is not None else None
             for key, idxs in groups.items():
                 # bound the rows of one backward-kernel launch (envs x
                 # configs x atoms) to ~32k
@@ -857,7 +931,8 @@ class SgprModel:
                     cfg_list = [self.data[i].cfg for i in chunk]
                     pending.append((echunk, chunk))
                     flat += list(eng.kernel_cols_multi(cfg_list, descs, nums,
-                                                       lones))
+                                                       lones, x_pds=pd,
+                                                       x_pms=pm))
         # -- the ONE host pull: staging + every column chunk --
         bufs = device_fetch(*flat)
         _finish_staging(bufs[: 2 * len(staged_dev)])
@@ -879,7 +954,7 @@ class SgprModel:
                 e, fp, (list(ke_all[eidx]), kf_all[eidx], kv_all[eidx])
             )
 
-    def _column_blocks(self, env: InducingEnv):
+    def _column_blocks(self, env: InducingEnv, x_pd=None, x_pm=None):
         """(Ke, Kf, Kv) column entries of one env against ALL data records:
         one column call and one pull per shape group of records, at most
         32k atom rows per call (the reference's per-structure loop,
@@ -897,6 +972,7 @@ class SgprModel:
                 cfg_list = [self.data[i].cfg for i in chunk]
                 ke, kf, kv = device_fetch(*self.engine.kernel_col_batch(
                     cfg_list, env.desc, env.number, env.lone,
+                    x_pd=x_pd, x_pm=x_pm,
                 ))
                 for j, i in enumerate(chunk):
                     rec = self.data[i]
@@ -913,7 +989,7 @@ class SgprModel:
         if env.desc is None:
             self.stage_env(env)
         if blocks is None:
-            blocks = self._column_blocks(env)
+            blocks = self._column_blocks(env, *self.engine.env_pair_data(env))
         ke_col, kf_col, kv_col = blocks
         a = self.kern_X_env(env) if col is None else np.asarray(col).reshape(-1)
         b = self.kern_env_env(env, env)
@@ -940,6 +1016,7 @@ class SgprModel:
             self.Kv = np.zeros((0, m + 1))
         self.X.append(env)
         self._model_arrays = None
+        self._pair_stage = None
         self._xdiag = None
         self._xstack = None
         if remake:
@@ -1106,6 +1183,7 @@ class SgprModel:
         self.M = self.M[sl, sl]
         self.X.pop(0 if first else -1)
         self._model_arrays = None
+        self._pair_stage = None
         self._xdiag = None
         self._xstack = None
         if remake:
@@ -1119,6 +1197,7 @@ class SgprModel:
         self.M = self.M[np.ix_(i, i)]
         self.X = [self.X[j] for j in i]
         self._model_arrays = None
+        self._pair_stage = None
         self._xdiag = None
         self._xstack = None
         self._fvqr = self._fvqr_select(i)
@@ -1157,6 +1236,7 @@ class SgprModel:
         if self.X:
             # descriptors are kernel-parameter independent; only the
             # kernel values need recomputation
+            self._pair_stage = None
             self._xdiag = None
             self._xstack = None
             M = np.zeros((self.m, self.m))
@@ -1421,7 +1501,10 @@ class SgprModel:
                 # inducing axis of every device tensor
                 self.mcap_growth += 1
             self._mcap = mcap
+            if self.engine.pair_terms:
+                for x in self.X:
+                    self.engine.grow_pair_kx(x)
             self._model_arrays = self.engine.model_arrays(
-                Xd, Xn, Xl, mu, ch, mcap=mcap
+                Xd, Xn, Xl, mu, ch, mcap=mcap, envs=self.X
             )
         return self._model_arrays

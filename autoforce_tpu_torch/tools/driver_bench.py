@@ -87,17 +87,22 @@ def reset_launches():
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The engine's SOAP-coefficient calls go to the plain torch versions
-    (also on a CUDA tensor): the float64 references of the card checks."""
+    """Every SOAP-coefficient call goes to the plain torch versions (also
+    on a CUDA tensor): the engine's direct calls (columns, the Jacobian
+    route) and the descriptors' autograd Function alike.  The float64
+    references of the card checks."""
     from .. import engine as engine_mod
 
-    saved = engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd
-    engine_mod.soap_coeff_fwd = sk.soap_coeff_fwd_plain
-    engine_mod.soap_coeff_bwd = sk.soap_coeff_bwd_plain
+    mods = (engine_mod, sk)
+    saved = [(m.soap_coeff_fwd, m.soap_coeff_bwd) for m in mods]
+    for m in mods:
+        m.soap_coeff_fwd = sk.soap_coeff_fwd_plain
+        m.soap_coeff_bwd = sk.soap_coeff_bwd_plain
     try:
         yield
     finally:
-        engine_mod.soap_coeff_fwd, engine_mod.soap_coeff_bwd = saved
+        for m, (f, b) in zip(mods, saved):
+            m.soap_coeff_fwd, m.soap_coeff_bwd = f, b
 
 
 def stress_rel_err(calc, system):

@@ -60,15 +60,36 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    stacked band's shape, as in phase 2.  Every driver launches both
    kernels, and its first chunk runs under CUDA's sync debug mode "error"
    (no host sync inside the steps but the documented breach reads).
+8. The kernel space (run right after phase 5; the workloads of
+   ``autoforce_tpu_torch.tools.kernelspace_bench``).  (a) On phase 5's
+   learned flagship model: ``kernel_block(method="jac")`` (the descriptor
+   Jacobian from one one-hot launch of the backward kernel) in float32
+   against the column route in float32 and against float64 through the
+   plain versions (``JAC_KE_TOL``, ``JAC_KF_TOL``), the device time per
+   call of both routes, one launch of each kernel per Jacobian call, and
+   both kernels against their plain versions at the one-hot launch's
+   shape.  (b) The flagship's growth stage with a trainable kernel
+   expression, exp(-g ||p - q||^2) at g = 0.5, and ``kernel_hpo=1``,
+   stopped at the record count whose energy-LML tensors fit
+   ``LML_BYTES_CAP`` or after 30 s, whichever comes first (the wall cap,
+   in the script's time limit): HPO ran, forces finite, both kernels
+   launched.  (c) The force-aware LML's value and gradient on four
+   32-atom Cu records, float64 on the card (kernels) against the CPU
+   (plain versions), within 1e-9 relative.  (d) The flagship with
+   ``chemical="rbf"`` and a Li-S pair term: a growth stage of 45 s
+   (``KS_CAPS``), finite forces and positions, float32 predict against
+   float64 plain on the final snapshot, then 300 frozen ``DeviceMD`` steps
+   (first chunk sync-checked).
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
-   band's stacked rows, and the learning path's staging and kernel_block
-   rows); a profiler breakdown of the MD step.
+   band's stacked rows, the learning path's staging and kernel_block
+   rows, and the Jacobian route's one-hot rows); a profiler breakdown of
+   the MD step.
 
 The line before the last is one JSON object with every kernel's numbers
-(launches split by path: serving MD, OTF learning and each structure
-driver); the last line is
+(launches split by path: serving MD, OTF learning, each structure
+driver and each kernel-space path); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -101,11 +122,28 @@ F64_ABS_TOL = 1e-10
 # signs, so 10x that.
 KB_KE_TOL = 1e-5
 KB_KF_TOL = 1e-4
+# the Jacobian route's kernel_block in float32, against the column route
+# in float32 and against float64 through the plain versions, relative to
+# the largest value of each block: the same form and size as KB_KE_TOL /
+# KB_KF_TOL.  Ke is the same sum of (p . x)^4 on both routes; the
+# Jacobian route's Kf and Kv sum, per force row, the ~K slot terms of
+# dc/drvec (each as exact as the backward kernel, F32_REL_TOL) times
+# the float32 chain through the spectrum, the same count of terms of both
+# signs as the column route's backward.
+JAC_KE_TOL = 1e-5
+JAC_KF_TOL = 1e-4
+# the kernel-space learning checks' stage caps (phase 8), set by the
+# script's time limit.  Kernel HPO learning gets 30 s (about 5 records:
+# the record cap of 17 would take minutes more).  The chemical + pair
+# growth gets 45 s, which ends after its third or fourth update on an
+# H100 (m ~ 250-370); its frozen MD then runs 2-4 steps/s, the pair Gram
+# being plain float64 torch.
+KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=300)
 # the OTF phase's stages and caps: the flagship's sizes, thresholds and
 # step counts (bench.py measure_otf), with wall caps that keep the whole
-# script near 10 minutes, well inside its time limit: growth ends by
-# m >= 512 in under a minute on an H100, production (about 0.5 steps/s
-# while the model still grows) gets 6 minutes
+# script inside its time limit: growth ends by m >= 512 in under a minute
+# on an H100, production (about 0.3 steps/s while the model still grows)
+# gets 6 minutes, long enough to reach max_inducing
 OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
                 prod_wall_cap=360.0)
 
@@ -785,7 +823,7 @@ def phase_otf_columns(calc, card):
     rec = model.data[-1]
     cfg = rec.cfg
     n = rec.natoms
-    ke, kf, kv = eng.kernel_block(cfg, ma)
+    ke, kf, kv = eng.kernel_block(cfg, ma, method="vjp")
     f64 = torch.float64
     cfg64 = cfg._replace(positions=cfg.positions.to(f64), cell=cfg.cell.to(f64))
     with db.plain_kernels():
@@ -813,7 +851,7 @@ def phase_otf_columns(calc, card):
     lones = ma.X_lone[:8]
 
     def block():
-        return eng.kernel_block(cfg, ma)
+        return eng.kernel_block(cfg, ma, method="vjp")
 
     def cols():
         return eng.kernel_cols_multi(same, xs, nums, lones)
@@ -847,6 +885,203 @@ def phase_otf_columns(calc, card):
               eng.radii_table())
     return errs, timings, {"otf_staging": (eng.params, staging),
                            "otf_record": (eng.params, record)}
+
+
+def phase_jacobian(calc, card):
+    """8a. The Jacobian route of kernel_block on the learned flagship
+    model: against the column route and float64 plain, device time per
+    call of both routes, launches per Jacobian call.  Returns (errors,
+    timings, launches of one Jacobian call, the one-hot launch's rows)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch.engine import _env_rvec, kernel_block_fn
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    model, eng = calc.model, calc.engine
+    ma = model.full_model_arrays()
+    rec = model.data[-1]
+    cfg, n = rec.cfg, rec.natoms
+    _reset_launches()
+    jac = eng.kernel_block(cfg, ma, method="jac")
+    torch.cuda.synchronize()
+    per_call = _launch_counts()
+    if per_call != {"soap_coeff_fwd": 1, "soap_coeff_bwd": 1}:
+        raise AssertionError(f"Jacobian route launches {per_call}, not 1 + 1")
+    vjp = eng.kernel_block(cfg, ma, method="vjp")
+    f64 = torch.float64
+    cfg64 = cfg._replace(positions=cfg.positions.to(f64), cell=cfg.cell.to(f64))
+    with db.plain_kernels():
+        ref = kernel_block_fn(cfg64, ma, eng.radii_table().to(f64), eng.params,
+                              eng.exponent)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, c, tol in (
+            ("Ke", jac[0], vjp[0], ref[0], JAC_KE_TOL),
+            ("Kf", jac[1][:n], vjp[1][:n], ref[1][:n], JAC_KF_TOL),
+            ("Kv", jac[2], vjp[2], ref[2], JAC_KF_TOL)):
+        scale = c.abs().max().item()
+        e_ref = (a.to(f64) - c).abs().max().item() / scale
+        e_col = (a.to(f64) - b.to(f64)).abs().max().item() / scale
+        errs[name] = {"vs_float64_plain": e_ref, "vs_column_route": e_col}
+        log(f"kernel_block Jacobian route float32, record of {n} atoms, m = "
+            f"{model.m}: {name} relative to the largest |{name}| {scale:.3e}: "
+            f"vs float64 plain {e_ref:.3e}, vs the float32 column route "
+            f"{e_col:.3e} (tol {tol:g})")
+        if not (e_ref <= tol and e_col <= tol):
+            raise AssertionError(f"kernel_block Jacobian route {name} disagrees")
+    # device time per call of the Jacobian route on the learned model (the
+    # column route's is phase 5's), and of both routes at m = 1024 (the
+    # flagship's max_inducing): the learned inducing rows repeated up to
+    # 1024 live columns (the time depends on their count)
+    X = model.X
+    idx = np.arange(1024) % len(X)
+    ma1024 = eng.model_arrays(np.stack([X[i].desc for i in idx]),
+                              np.array([X[i].number for i in idx], np.int32),
+                              np.array([X[i].lone for i in idx]),
+                              np.zeros(1024), np.zeros((1024, 1024)), mcap=1024)
+    timings = {}
+    for name, m_label, mas in (("jac", model.m, ma), ("jac", 1024, ma1024),
+                               ("vjp", 1024, ma1024)):
+        def fn(name=name, mas=mas):
+            return eng.kernel_block(cfg, mas, method=name)
+
+        t = {"device_ms": sb.device_ms(fn, 5),
+             "soap_kernels_ms": sb.device_ms(fn, 5, "soap_"),
+             "call_ms": sb.cuda_ms(fn, 5)}
+        timings[f"{name}_m{m_label}"] = t
+        log(f"kernel_block {'Jacobian' if name == 'jac' else 'column'} "
+            f"route at m = {m_label}, N = {cfg.npad}, K = "
+            f"{cfg.nbr_idx.shape[1]} [{card}]: device {t['device_ms']} ms "
+            f"per call (SOAP kernels {t['soap_kernels_ms']} ms), elapsed "
+            f"{t['call_ms']:.3f} ms")
+    L = eng.params.lmax + 1
+    reps = 2 * (eng.params.nmax + 1) * L * L
+    with torch.no_grad():
+        rvec = _env_rvec(cfg.positions, cfg.cell, cfg)
+    mask = cfg.nbr_mask & cfg.atom_mask[:, None]
+    rows = (rvec.repeat(reps, 1, 1).contiguous(), cfg.nbr_sidx.repeat(reps, 1),
+            mask.repeat(reps, 1), eng.radii_table())
+    return errs, timings, per_call, (eng.params, rows)
+
+
+def phase_kernel_space(card):
+    """8b-d. Learning with a trainable kernel expression and kernel HPO,
+    the force-aware LML on the card against the CPU, and the alchemical
+    mixing with a pair term through growth and frozen MD.  Returns
+    ({path: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch.kernelalgebra import from_state, softplus
+    from autoforce_tpu_torch.pairkernels import PairTerm
+    from autoforce_tpu_torch.tools import kernelspace_bench as ksb
+
+    t_phase = time.time()
+    paths, numbers = {}, {}
+
+    def close(name):
+        got = _launch_counts()
+        for k, c in got.items():
+            if c == 0:
+                raise AssertionError(f"{name}: {k} never launched")
+        paths[name] = got
+
+    # (b) learning with kernel HPO, the energy objective (3,073-row records
+    # exceed the force-aware LML's ef_row_cap = 400)
+    cap = ksb.lml_record_cap(1024)
+    from autoforce_tpu_torch.regression.hpo import energy_lml_bytes
+
+    log(f"kernel HPO record cap: {cap} records of 1024 atoms "
+        f"({energy_lml_bytes(cap, 1024) / 1e9:.2f} GB of energy-LML tensors, "
+        f"cap {ksb.LML_BYTES_CAP / 1e9:.0f} GB)")
+    eng = ksb.flagship_engine(dtype=torch.float32,
+                              kernel=from_state(ksb.GAMMA_EXPR))
+    out, calc, s = ksb.learn(eng, wall_cap=KS_CAPS["hpo_wall_cap"],
+                             record_cap=cap, kernel_hpo=1,
+                             on_start=_reset_launches)
+    torch.cuda.synchronize()
+    close("expr_hpo")
+    g = float(softplus(np.asarray(eng.kernel_kind.params())[0], np))
+    log(f"kernel HPO learning [{card}]: {out['steps']} steps in "
+        f"{out['wall_s']:.1f} s, ended by {out['exit']}; (ndata, m) = "
+        f"({out['ndata']}, {out['m']}); HPO runs {out['kernel_hpo_runs']}, "
+        f"moved {out['kernel_hpo_moved']}; g 0.5 -> {g:.6g} "
+        f"({eng.kernel_kind.state}); force MAE vs the oracle "
+        f"{out['f_mae_vs_oracle']:.5f} eV/A (not held to the dot kernel's "
+        f"0.15 bar); launches {paths['expr_hpo']}")
+    if out["kernel_hpo_runs"] < 1:
+        raise AssertionError("kernel HPO never ran")
+    if not (out["forces_finite"] and out["positions_finite"]):
+        raise AssertionError("kernel HPO learning produced non-finite forces")
+    numbers["expr_hpo"] = dict(out, g=g, record_cap=cap)
+    del calc, s
+
+    # (c) the force-aware LML, card (kernels) against CPU (plain versions)
+    _reset_launches()
+    eng_c, recs = ksb.ef_lml_records("cuda")
+    t0 = time.time()
+    v, grad, rows = ksb.ef_lml_value(eng_c, recs)
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    close("ef_lml")
+    eng_h, recs_h = ksb.ef_lml_records("cpu")
+    t0 = time.time()
+    v0, grad0, _ = ksb.ef_lml_value(eng_h, recs_h)
+    t_cpu = time.time() - t0
+    e_v = abs(v - v0) / abs(v0)
+    e_g = float(np.abs(grad - grad0).max() / np.abs(grad0).max())
+    log(f"force-aware LML, {len(recs)} records, {rows} rows [{card}]: value "
+        f"{v:.12g} (CPU {v0:.12g}), relative error {e_v:.3e}; gradient "
+        f"relative error {e_g:.3e} (tol 1e-9); {t_card:.2f} s on the card, "
+        f"{t_cpu:.2f} s on the CPU; launches {paths['ef_lml']}")
+    if not (e_v <= 1e-9 and e_g <= 1e-9):
+        raise AssertionError("force-aware LML disagrees between card and CPU")
+    numbers["ef_lml"] = dict(rows=rows, value_rel_err=e_v, grad_rel_err=e_g,
+                             card_s=t_card, cpu_s=t_cpu)
+
+    # (d) alchemical mixing and a Li-S pair term
+    eng_d = ksb.flagship_engine(dtype=torch.float32, chemical="rbf",
+                                pair_terms=(PairTerm(a=3, b=16, rc=6.0),))
+    out_d, calc_d, s_d = ksb.learn(eng_d, wall_cap=KS_CAPS["chem_wall_cap"],
+                                   on_start=_reset_launches)
+    torch.cuda.synchronize()
+    learn_l = _launch_counts()
+    if not (out_d["forces_finite"] and out_d["positions_finite"]):
+        raise AssertionError("chemical + pair learning produced non-finite forces")
+    if out_d["m"] < 100:
+        raise AssertionError("chemical + pair growth ended below m = 100")
+    # float32 through the kernels against float64 through the plain
+    # versions, held to the chip-independent bars of bench.py:412 (energy
+    # 2e-4 eV/atom, forces 1e-2 eV/A) as phase 3 holds the dot kernel
+    e_err, e_abs, f_err, f_abs = ksb.predict_rel_err(calc_d, s_d)
+    nat = len(s_d)
+    log(f"chemical + pair learning [{card}]: {out_d['steps']} steps in "
+        f"{out_d['wall_s']:.1f} s, ended by {out_d['exit']}; (ndata, m) = "
+        f"({out_d['ndata']}, {out_d['m']}), pair bucket {eng_d.pair_kx}; force "
+        f"MAE vs the oracle {out_d['f_mae_vs_oracle']:.5f} eV/A; float32 vs "
+        f"float64 plain predict: energy {e_err / nat:.3e} eV/atom (|E| "
+        f"{e_abs:.4g}, bar 2e-4), largest force error {f_err:.3e} eV/A "
+        f"(largest |f| {f_abs:.4g}, bar 1e-2)")
+    if not (e_err / nat < 2e-4 and f_err < 1e-2):
+        raise AssertionError("chemical + pair predict misses the float32 bars")
+    _reset_launches()
+    rate, rec = ksb.frozen_rate(calc_d, s_d, steps=KS_CAPS["frozen_steps"])
+    if not rec["sync_checked"]:
+        raise AssertionError("chemical + pair MD: no chunk ran under the sync check")
+    md_l = _launch_counts()
+    paths["chem_pair"] = {k: learn_l[k] + md_l[k] for k in learn_l}
+    for k, c in paths["chem_pair"].items():
+        if learn_l[k] == 0 or md_l[k] == 0:
+            raise AssertionError(f"chem_pair: {k} never launched")
+    log(f"chemical + pair frozen DeviceMD [{card}]: {rate:.2f} steps/s over "
+        f"{KS_CAPS['frozen_steps']} steps (first chunk sync-checked); "
+        f"launches learning {learn_l}, MD {md_l}")
+    numbers["chem_pair"] = dict(out_d, frozen_steps_per_sec=rate,
+                                e_err_per_atom=e_err / nat, f_err_max=f_err)
+    log(f"phase 8 (b-d) took {time.time() - t_phase:.1f} s")
+    return paths, numbers
 
 
 def phase_profile(dyn, ms_per_step, card):
@@ -1027,25 +1262,35 @@ def run_phases(torch):
     timing["md_bucket"] = (eng.params, md_inputs)
     otf, calc, otf_launches = phase_otf(card)
     kb_errs, col_times, otf_inputs = phase_otf_columns(calc, card)
+    t8 = time.time()
+    jac_errs, jac_times, jac_launches, onehot = phase_jacobian(calc, card)
     worst.update(phase_kernels({
         "otf_staging": otf_inputs["otf_staging"] + ((torch.float64,),),
         "otf_record": otf_inputs["otf_record"] + ((torch.float32,),),
+        "onehot_rows": onehot + ((torch.float32,),),
     }))
+    timing["onehot_rows"] = onehot
     params, (rvec, sidx, mask, radii) = otf_inputs["otf_record"]
     timing.update(otf_inputs)
     # the rows of one backward launch of kernel_block (64 columns)
     timing["otf_block_rows"] = (params, (rvec.repeat(64, 1, 1), sidx.repeat(64, 1),
                                          mask.repeat(64, 1), radii))
     del calc
+    ks_launches, ks_numbers = phase_kernel_space(card)
+    log(f"phase 8 took {time.time() - t8:.1f} s")
     rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
-                                         **driver_launches}, card)
+                                         **driver_launches,
+                                         "kb_jac": jac_launches,
+                                         **ks_launches}, card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
     log(f"summary: {len(md_inputs[0])}-atom Cu Langevin MD median "
         f"{rates[1]:.1f} steps/s [{card}]; OTF {otf['natoms']}-atom "
         f"{otf['steps_per_sec_incl_learning']:.4f} steps/s including learning, "
         f"force MAE {otf['f_mae_vs_oracle']:.4f} eV/A; kernel_block float32 "
-        f"relative errors {kb_errs}; column timings {json.dumps(col_times)}")
+        f"relative errors {kb_errs}; column timings {json.dumps(col_times)}; "
+        f"Jacobian route errors {jac_errs}, timings {json.dumps(jac_times)}")
+    print(json.dumps({"kernel_space": ks_numbers}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

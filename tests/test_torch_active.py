@@ -256,7 +256,7 @@ def test_oracle_is_checked():
                          pckl=None, tape=None, **F64)
     with pytest.raises(NotImplementedError):
         ActiveCalculator(covariance=None, calculator=None, logfile=None,
-                         pckl=None, tape=None, kernel_hpo=2, **F64)
+                         pckl=None, tape=None, mesh=object(), **F64)
 
 
 @pytest.mark.parametrize("case", ["cu_rattled", "cu_au_strained"])

@@ -193,10 +193,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_engine_refuses_unported_options():
-    for kw in (dict(pair_terms=("x",)), dict(chemical="rbf"), dict(mesh=object()),
-               dict(kernel="rbf")):
-        with pytest.raises(NotImplementedError):
-            Engine(device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(device="cpu", mesh=object())
+    # the kernel space is ported: pair terms, the alchemical mixing and
+    # every base kernel construct
+    from autoforce_tpu_torch.kernelalgebra import DotProd, White
+    from autoforce_tpu_torch.pairkernels import PairTerm
+
+    term = PairTerm(a=29, b=29)
+    for kw, attr, want in ((dict(pair_terms=(term,)), "pair_terms", (term,)),
+                           (dict(chemical="rbf"), "chemical", "rbf"),
+                           (dict(kernel="rbf"), "kernel_kind", "rbf"),
+                           (dict(kernel="normed"), "kernel_kind", "normed")):
+        eng = Engine(device="cpu", **kw)
+        assert getattr(eng, attr) == want and not eng.plain_kernel
+    expr = DotProd() ** 4 + 0.01 * White()
+    assert Engine(device="cpu", kernel=expr).kernel_kind == expr
+    assert Engine(device="cpu").plain_kernel
 
 
 def test_device_fetch_round_trips_types():

@@ -378,3 +378,93 @@ def test_neb_band_float32_matches_float64_per_image(cuda):
     assert rows[0].shape[0] == 3 * band._npad
     assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
     assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernel_block_jacobian_route_on_card(learned, dtype):
+    """The Jacobian route (one one-hot launch of the backward kernel)
+    against the column route and against float64 through the plain
+    versions; tolerances as the column route's test above."""
+    eng, model = learned.engine, learned.model
+    ma = model.full_model_arrays()
+    cfg64 = model.data[-1].cfg
+    dt = getattr(torch, dtype)
+    cfg = cfg64._replace(positions=cfg64.positions.to(dt),
+                         cell=cfg64.cell.to(dt))
+    from autoforce_tpu_torch.engine import kernel_block_fn, kernel_block_jac_fn
+
+    radii = eng.radii_table().to(dt)
+    sk.soap_coeff_fwd.launches = 0
+    sk.soap_coeff_bwd.launches = 0
+    got = kernel_block_jac_fn(cfg, ma, radii, eng.params, eng.exponent, chunk=5)
+    assert sk.soap_coeff_fwd.launches == 1 and sk.soap_coeff_bwd.launches == 1
+    col = kernel_block_fn(cfg, ma, radii, eng.params, eng.exponent)
+    with db.plain_kernels():
+        ref = kernel_block_jac_fn(cfg64, ma, eng.radii_table(), eng.params,
+                                  eng.exponent)
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    close(got, ref, tol)
+    close(got, [c.double() for c in col], tol)
+
+
+def test_one_hot_launch_matches_plain_on_card(cuda):
+    """Both kernels at the one-hot launch's shape (the rows repeated
+    2 (nmax+1)(lmax+1)^2 times) against their plain versions."""
+    from autoforce_tpu_torch.engine import coeff_jacobian
+
+    args = batch(cuda, torch.float64, n=9, nspecies=3)
+    sk.soap_coeff_bwd.launches = 0
+    got = coeff_jacobian(*args, PARAMS)
+    assert sk.soap_coeff_bwd.launches == 1
+    Q = (PARAMS.nmax + 1) * (PARAMS.lmax + 1) ** 2
+    assert got.shape == (2, Q) + tuple(args[0].shape)
+    with db.plain_kernels():
+        from autoforce_tpu_torch import engine as engine_mod
+
+        ref = engine_mod.coeff_jacobian(*args, PARAMS)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max().item() <= 1e-10 * max(1.0, ref.abs().max().item())
+
+
+def test_kernel_space_predict_on_card(cuda):
+    """Chemical mixing, a pair term and a kernel expression: float32
+    predict through the kernels against float64 through the plain
+    versions (energies 1e-5, forces 1e-4 of their largest values)."""
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.oracles import MixtureLennardJones
+    from autoforce_tpu_torch.engine import Engine
+    from autoforce_tpu_torch.kernelalgebra import from_state
+    from autoforce_tpu_torch.pairkernels import PairTerm
+    from autoforce_tpu_torch.regression.sgpr import SgprModel
+    from autoforce_tpu_torch.system import bulk_fcc
+
+    eng = Engine(params=SoapParams(lmax=2, nmax=2, rc=4.0), exponent=4,
+                 species=[29, 47], chemical="rbf",
+                 kernel=from_state("Exp(Mul(Const(-1.0), Mul(SqD(), Positive(0.5))))"),
+                 pair_terms=(PairTerm(a=29, b=47, rc=4.0, lengthscale=0.5),),
+                 device=cuda, dtype=torch.float64)
+    eps = {(29, 29): 0.15, (29, 47): 0.12, (47, 47): 0.1}
+    sig = {k: 2.3 for k in eps}
+    calc = ActiveCalculator(covariance=SgprModel(eng),
+                            calculator=MixtureLennardJones(eps, sig, rc=4.0),
+                            logfile=None, pckl=None, tape=None, ediff=0.005,
+                            fdiff=0.02)
+    s = bulk_fcc("Cu", 3.6).repeat((2, 2, 2))
+    s.numbers[::3] = 47
+    for k in range(3):
+        t = s.copy()
+        t.rattle(0.1, seed=20 + k)
+        calc.calculate(t)
+    model = calc.model
+    assert model.m > 4
+    ma = model.full_model_arrays()
+    cfg64 = eng.make_config(t)
+    vs = np.ones(cfg64.npad)
+    eng.dtype = torch.float32
+    cfg32 = eng.make_config(t)
+    e32, f32, *_ = eng.predict(cfg32, ma, vs)
+    eng.dtype = torch.float64
+    with db.plain_kernels():
+        e64, f64, *_ = eng.predict(cfg64, ma, vs)
+    assert abs(float(e32) - float(e64)) <= 1e-5 * max(abs(float(e64)), 1.0)
+    assert (f32.double() - f64).abs().max().item() <= 1e-4 * f64.abs().max().item()

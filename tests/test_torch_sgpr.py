@@ -406,3 +406,41 @@ def test_folders_cross_between_packages(carried, tmp_path):
     again = load_model(tdir, **F64)
     for a, b in zip(again.X, back.X):
         np.testing.assert_allclose(a.desc, b.desc, rtol=0, atol=1e-13)
+
+
+def test_overflowed_fvqr_residual_falls_back_to_a_fresh_build():
+    """An inducing column appended through a near-singular fv-QR factor
+    overflows its projection residual: the cache drops, the exact path
+    rebuilds, and the model equals one built afresh from the same
+    inducing set and data."""
+    rng, model, rand_env, rand_rec = port_setup(3)
+    for _ in range(4):
+        model.add_inducing(rand_env(), remake=False)
+    for _ in range(3):
+        model.add_data(rand_rec(), remake=False)
+    model.make_munu()
+    assert model._fvqr is not None
+    model._fvqr["R"][-1, -1] = 1e-300
+    seen = []
+    project = model._fvqr_project_on
+
+    def spy(K, c):
+        out = project(K, c)
+        seen.append(out)
+        return out
+
+    model._fvqr_project_on = spy
+    model.add_inducing(rand_env())
+    assert seen == [None]
+    assert np.isfinite(model.mu).all()
+    check_fvqr(model, "after the overflow")
+    fresh = SgprModel(model.engine)
+    fresh.noise_state = dict(model.noise_state)
+    fresh.mean_weights = dict(model.mean_weights)
+    for env in model.X:
+        fresh.add_inducing(env, remake=False)
+    for rec in model.data:
+        fresh.add_data(rec, remake=False)
+    fresh.make_munu()
+    np.testing.assert_allclose(model.mu, fresh.mu, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(model.choli, fresh.choli, rtol=1e-9, atol=1e-12)

@@ -1,3 +1,4 @@
+from .bcm import BCMActiveCalculator
 from .oracles import LennardJones, ZeroCalculator
 
-__all__ = ["LennardJones", "ZeroCalculator"]
+__all__ = ["BCMActiveCalculator", "LennardJones", "ZeroCalculator"]

@@ -199,6 +199,10 @@ class ActiveCalculator:
     def active(self):
         return self._calc is not None
 
+    def _untrained(self):
+        """No servable model (a committee counts its frozen experts)."""
+        return self.size[1] == 0
+
     @property
     def engine(self) -> Engine:
         return self.model.engine
@@ -261,7 +265,7 @@ class ActiveCalculator:
     # ------------------------------------------------------------- calculate
     def calculate(self, system) -> dict:
         timings = [time.time()]
-        if self.size[1] == 0 and not self.active:
+        if self._untrained() and not self.active:
             raise RuntimeError("you forgot to assign an oracle calculator!")
         if self.engine.ensure_species(system.numbers):
             self.model.restage()
@@ -1015,8 +1019,19 @@ class ActiveCalculator:
         self._include_items(tape.read(exclude=self.tape), ndata=ndata)
 
     def include_folder(self, folder, ndata=None):
-        raise NotImplementedError(
-            "training from a reference model folder is not ported yet")
+        """Train from a reference torch-pickle model folder, the binary
+        analog of include_tape: the folder's inducing LCEs and
+        FP-labelled training structures are extracted without theforce or
+        ase (io/torch_interop.py) and replayed through the same sampling
+        loop (reference PosteriorPotentialFromFolder, gppotential.py:
+        1342-1368, with retraining: the descriptors differ by design)."""
+        from ..io.torch_interop import read_reference_folder
+
+        items, _ = read_reference_folder(folder)
+        # only FP-labelled structures can train
+        items = [(c, o) for c, o in items
+                 if c != "atoms" or getattr(o, "calc", None) is not None]
+        self._include_items(items, ndata=ndata)
 
     def _include_items(self, items, ndata=None):
         _calc = self._calc

@@ -74,7 +74,7 @@ class ConfigArrays(NamedTuple):
     """Padded device-ready representation of one configuration."""
 
     positions: torch.Tensor  # (N, 3)
-    cell: torch.Tensor  # (3, 3)
+    cell: torch.Tensor  # (3, 3), or (N, 3, 3): one per row (stacked images)
     numbers: torch.Tensor  # (N,) int32 atomic numbers (0 for padding)
     atom_mask: torch.Tensor  # (N,) bool
     nbr_idx: torch.Tensor  # (N, K) int32
@@ -161,8 +161,10 @@ class _NbrGatherRev(torch.autograd.Function):
 def _env_rvec(positions, cell, cfg: ConfigArrays, use_rev=False):
     """Neighbor displacement vectors (N, K, 3).
 
-    ``use_rev``: route the neighbor gather through the reverse-slot
-    backward (first-order callers only — the MD/predict hot paths)."""
+    ``cell``: (3, 3), or (N, 3, 3) with a cell per row (the stacked images
+    of a band whose images differ in cell).  ``use_rev``: route the
+    neighbor gather through the reverse-slot backward (first-order callers
+    only — the MD/predict hot paths)."""
     if use_rev and cfg.nbr_rev is not None:
         nbrs = _NbrGatherRev.apply(positions, cfg.nbr_idx, cfg.nbr_rev,
                                    cfg.nbr_mask)
@@ -171,8 +173,10 @@ def _env_rvec(positions, cell, cfg: ConfigArrays, use_rev=False):
     # image shifts off @ cell, written out: a (N K, 3) x (3, 3) product is
     # a poor shape for a GEMM
     off = cfg.nbr_off.to(positions.dtype)
-    shift = (off[..., 0, None] * cell[0] + off[..., 1, None] * cell[1]
-             + off[..., 2, None] * cell[2])
+    c = cell if cell.dim() == 2 else cell[:, None]
+    shift = (off[..., 0, None] * c[..., 0, :]
+             + off[..., 1, None] * c[..., 1, :]
+             + off[..., 2, None] * c[..., 2, :])
     return nbrs - positions[:, None, :] + shift
 
 

@@ -1,5 +1,5 @@
 """Device-resident molecular dynamics: the integrator stays on the GPU
-(port of ``autoforce_tpu/md/device_md.py``, single model).
+(port of ``autoforce_tpu/md/device_md.py``).
 
 The whole inner loop — forces (SGPR predict), thermostat, position update
 and the stopping checks — runs as tensor operations on the card.  The JAX
@@ -24,6 +24,11 @@ chain (NVT).  The Langevin noise of global step ``t`` comes from a
 ``torch.Generator`` seeded with ``(seed, t)``, so a seeded run is
 reproducible however far the host ran ahead of the device.  It cannot
 reproduce ``jax.random``'s numbers.
+
+A Bayesian committee (:class:`..calculator.bcm.BCMActiveCalculator` with
+frozen experts) is served on the card as well (:func:`_committee_e`): the
+descriptors are computed once per step for every expert, so each SOAP
+kernel still launches once per step whatever the number of experts.
 
 :func:`drive` is the loop machinery shared by every device driver of the
 port (this module, md/device_npt.py, opt/device_fire.py,
@@ -84,10 +89,19 @@ def _nhc_half(KE2, vxi, xi, Q, kT, dof, dt, nc=2):
 
 
 def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                 check_beta, ks=None):
+                 check_beta, ks=None, mean_e=None):
     """(energy, forces, beta_max) of one configuration under one SGPR
     model — the physics of the device MD step (predict_fn minus virial);
-    ``ks``: the engine's kernel space (None: the plain dot kernel)."""
+    ``ks``: the engine's kernel space (None: the plain dot kernel).  With
+    ``mean_e`` the model is a committee (:func:`_committee_e`)."""
+    if mean_e is not None:
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
+                                   vscale_atom, mean_e, params, exponent, ks)
+            (g,) = torch.autograd.grad(e.sum(), p)
+        f = -g * cfg.atom_mask[:, None]
+        return e[0].detach(), f, _floor_max(bmax[0], check_beta)
     with torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         cov, lone, alpha = _total_cov(
@@ -101,6 +115,71 @@ def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
     f = -g * cfg.atom_mask[:, None]
     return e.detach(), f, _beta_max(cov.detach(), cfg, model, vscale_atom,
                                     alpha, check_beta, pos)
+
+
+def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
+                 exponent, ks=None, nimg=1, weights=False):
+    """(weighted committee energy, committee covloss floor max), one of
+    each per image, at positions ``p`` under ``cell``: the physics that
+    every device driver serving a Bayesian committee shares.  ``cfg`` may
+    stack ``nimg`` images of equal row counts (``opt.device_neb``).
+
+    ``models``: ModelArrays whose leaves carry a leading expert axis E;
+    ``vscale_atoms``: (E, N); ``mean_e``: (E,).  The descriptors are
+    computed once for the whole committee (one forward launch of the SOAP
+    kernel), every expert's Gram block is one product against the
+    experts' inducing sets laid end to end, and the gradient of the
+    returned energy takes one backward launch.  Expert energies combine
+    with the weights ``scale_k = -log(covmax_k) / covmax_k`` (covmax_k:
+    the expert's largest beta over the image's atoms), which are computed
+    without autograd as the host combination is, so differentiating the
+    energy gives the committee forces and virial.  The sampling trigger is
+    the committee floor ``min_k beta_k``.  ``weights``: also return the
+    (E, R) weights."""
+    E, mcap = models.m_mask.shape
+
+    def flat(t):  # (E, mcap, ...) -> (E * mcap, ...)
+        return t.reshape(E * mcap, *t.shape[2:])
+
+    pair_d = pair_mask = None
+    if models.pair_d is not None:
+        # (E, T, mcap, KX) -> (T, E * mcap, KX)
+        T = models.pair_d.shape[1]
+        pair_d = models.pair_d.transpose(0, 1).reshape(T, E * mcap, -1)
+        pair_mask = models.pair_mask.transpose(0, 1).reshape(T, E * mcap, -1)
+    cov, lone, alpha = _total_cov(
+        p, cell, cfg, flat(models.X_desc), flat(models.X_num),
+        flat(models.X_lone), radii, params, exponent, use_rev=True, ks=ks,
+        pair_d=pair_d, pair_mask=pair_mask,
+    )
+    N = cov.shape[0]
+    cov = cov.reshape(N, E, mcap).transpose(0, 1)  # (E, N, mcap)
+    cov = cov * (cfg.atom_mask[None, :, None] & models.m_mask[:, None, :])
+    e_k = (cov @ models.mu[..., None])[..., 0]  # (E, N)
+    e_k = e_k.reshape(E, nimg, N // nimg).sum(-1)  # (E, R)
+    with torch.no_grad():
+        mm = models.m_mask.to(cov.dtype)[:, None, :]
+        b = (models.choli * mm) @ (cov * mm).transpose(1, 2)  # (E, mcap, N)
+        c = (b * b).sum(1) / alpha
+        trig = torch.sqrt(torch.clamp(1.0 - c, min=0.0)) * torch.sqrt(
+            vscale_atoms)
+        betas = torch.where(cfg.atom_mask[None, :], trig,
+                            torch.full_like(trig, -math.inf))
+        betas = betas.reshape(E, nimg, N // nimg)
+        covmax = betas.amax(-1).clamp(1e-12, 1.0)  # (E, R)
+        scale = torch.where(covmax < 1.0, -torch.log(covmax),
+                            torch.zeros_like(covmax)) / covmax
+        tot = scale.sum(0)
+        w = torch.where(tot > 0, scale / torch.where(tot > 0, tot, 1.0),
+                        torch.full_like(scale, 1.0 / E))
+        bmax = betas.amin(0).amax(-1)  # (R,)
+    e_tot = (w * (e_k + mean_e[:, None])).sum(0)
+    return (e_tot, bmax, w) if weights else (e_tot, bmax)
+
+
+def _floor_max(bmax, check_beta):
+    """The committee's trip scalar, 0 when the trip is off."""
+    return bmax if check_beta else torch.zeros_like(bmax)
 
 
 def _beta_max(cov, cfg, model, vscale_atom, alpha, check_beta, pos):
@@ -433,6 +512,7 @@ def md_chunk(
     nhc_vxi=None,  # (3,) chain velocities (carried across chunks)
     nhc_xi=None,  # (3,) chain positions
     ks=None,  # the engine's kernel space (Engine.kernel_space())
+    mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
 ):
     """Run up to ``nsteps`` MD steps on the device; early-exit on a skin
     breach or the uncertainty threshold.
@@ -447,7 +527,7 @@ def md_chunk(
 
     def forces_fn(pos, tbl):
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta, ks)
+                            params, exponent, check_beta, ks, mean_e)
 
     nhc = None
     if thermostat == "nhc":
@@ -478,18 +558,94 @@ def check_plain_surface(calc, what="DeviceMD"):
             f"{what}: metadynamics is not ported yet")
 
 
-def new_chain(calc, system, check_beta):
+# vscale sentinel for a species a model has never seen: the host's inf
+# (any uncertainty trips sampling; an expert's covmax saturates at 1, so
+# its weight goes to 0) as a huge finite value that keeps 0 * inf out of
+# beta
+VS_UNSEEN = 1e8
+
+
+def committee_models(calc):
+    """The frozen experts and the live model of a committee calculator
+    with experts (each solved and non-empty); [] for one model.  Shared
+    by every device driver that serves committees."""
+    from ..calculator.bcm import BCMActiveCalculator, servable
+
+    if not (isinstance(calc, BCMActiveCalculator) and calc.experts):
+        return []
+    # with a frozen expert the committee serves, even when only one model
+    # is servable (the live one may be freshly spawned and empty)
+    return servable([*calc.experts.values(), calc.model])
+
+
+def committee_stack(calc, system, models, cfg, state):
+    """The committee's model state on the device: ModelArrays with a
+    leading expert axis at a common inducing capacity, with the experts'
+    (E, N) vscale rows and (E,) mean energies.  ``state`` carries the
+    sticky capacity ``mcap`` and the per-expert staging ``cache`` across
+    a driver's chain rebuilds: a frozen expert is staged and uploaded
+    again only when its ``state_version``, the capacity, the species
+    table, the numbers or the pair buffer changed."""
+    eng = calc.engine
+    numbers = cfg.numbers.cpu().numpy()
+    # doubling growth from 32, as SgprModel.full_model_arrays
+    mcap = max(state.get("mcap", 0), 32)
+    for m in models:
+        m.adopt_engine(eng)
+        while mcap < m.m:
+            mcap *= 2
+        if eng.pair_terms:
+            for x in m.X:
+                eng.grow_pair_kx(x)
+    state["mcap"] = mcap
+    cache = state.get("cache", {})
+    new_cache = {}
+    token0 = (mcap, tuple(eng.species), numbers.tobytes(),
+              np.asarray(system.numbers).tobytes(), eng.pair_kx)
+    mas, vs_rows, mean_rows = [], [], []
+    for m in models:
+        token = (m.state_version,) + token0
+        ent = cache.get(id(m))
+        if ent is None or ent[0] is not m or ent[1] != token:
+            Xd = (np.stack([x.desc for x in m.X]) if m.m
+                  else np.zeros((0, eng.dim)))
+            Xn = np.array([x.number for x in m.X], dtype=np.int32)
+            Xl = np.array([x.lone for x in m.X], dtype=bool)
+            ma = eng.model_arrays(Xd, Xn, Xl, m.mu, m.choli, mcap=mcap,
+                                  envs=m.X)
+            vs = m.vscale_for(numbers)
+            ent = (m, token, (ma, np.where(np.isfinite(vs), vs, VS_UNSEEN),
+                              m.mean_energy(system.numbers)))
+        new_cache[id(m)] = ent
+        ma, vs_row, mean_row = ent[2]
+        mas.append(ma)
+        vs_rows.append(vs_row)
+        mean_rows.append(mean_row)
+    state["cache"] = new_cache
+    stacked = ModelArrays(*(None if xs[0] is None else torch.stack(xs)
+                            for xs in zip(*mas)))
+    return stacked, np.stack(vs_rows), np.asarray(mean_rows)
+
+
+def new_chain(calc, system, check_beta, committee=None):
     """Device state shared by a chain of chunks of any device driver, from
     the calculator's current configuration: the config, model arrays,
     radii, uncertainty scale, masses, the table's build origin and the
-    in-loop rebuild's species tables and cutoff, and the kernel space."""
+    in-loop rebuild's species tables and cutoff, and the kernel space.
+    Under a committee (``committee``: the driver's staging state of
+    :func:`committee_stack`) ``ma`` carries the expert axis, ``vs`` is
+    (E, N) and ``mean_e`` holds the experts' mean energies (else None)."""
     eng = calc.engine
     cfg = calc.cfg
     dtype, dev = cfg.positions.dtype, cfg.positions.device
-    vs = calc.model.vscale_for(cfg.numbers.cpu().numpy())
-    # unseen species: a huge finite sentinel (the host's inf semantics:
-    # any uncertainty trips sampling) that keeps 0 * inf out of beta
-    vs = np.where(np.isfinite(vs), vs, 1e8)
+    models = committee_models(calc)
+    if models:
+        ma, vs, mean_e = committee_stack(
+            calc, system, models, cfg, {} if committee is None else committee)
+    else:
+        ma, mean_e = calc.model.full_model_arrays(), None
+        vs = calc.model.vscale_for(cfg.numbers.cpu().numpy())
+        vs = np.where(np.isfinite(vs), vs, VS_UNSEEN)
     npad = cfg.npad
     masses = np.ones((npad, 1))
     masses[: len(system), 0] = system.get_masses()
@@ -502,7 +658,8 @@ def new_chain(calc, system, check_beta):
 
     return dict(
         cfg=cfg,
-        ma=calc.model.full_model_arrays(),
+        ma=ma,
+        mean_e=None if mean_e is None else t(mean_e, eng.model_dtype),
         radii=eng.radii_table(),
         vs=t(vs),
         masses=t(masses),
@@ -526,7 +683,8 @@ def padded_rows(a, npad, like):
 class DeviceMD:
     """Chunked on-device MD around an inference ActiveCalculator.
 
-    A drop-in fast MD engine for a frozen model.  The chunk stops at the
+    A drop-in fast MD engine for a frozen model or a committee of them
+    (:func:`committee_models`).  The chunk stops at the
     exact step on which the uncertainty crosses the calculator's ``ediff``
     when ``check_beta`` is on, and the host then runs the calculator's
     full ``calculate`` there.  Thermostats: BAOAB Langevin, a Nose-Hoover
@@ -568,11 +726,13 @@ class DeviceMD:
             calc.engine.params.rc + calc._nlcache.skin,
         )
         self._stall = 0
+        self._committee = {}  # committee_stack's staging across chains
 
     def _new_chain(self):
         """Device state of a chain of chunks, from the calculator's
         current configuration."""
-        chain = new_chain(self.calc, self.system, self.check_beta)
+        chain = new_chain(self.calc, self.system, self.check_beta,
+                          self._committee)
         chain["vel"] = padded_rows(self.system.get_velocities(),
                                    chain["cfg"].npad, chain["pos0"])
         return chain
@@ -635,7 +795,8 @@ class DeviceMD:
                 check_beta=self.check_beta, thermostat=self.thermostat,
                 rebuild=inloop, rebuild_cut=chain["cut"],
                 sidx_atom=chain["sidx_atom"], sidx_ok=chain["sidx_ok"],
-                seed=self.seed, step0=self.nsteps, ks=chain["ks"], **nhc_kw,
+                seed=self.seed, step0=self.nsteps, ks=chain["ks"],
+                mean_e=chain["mean_e"], **nhc_kw,
             )
             pos, vel, f, e, beta_max, i = out[:6]
             if inloop:

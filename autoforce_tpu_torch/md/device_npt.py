@@ -1,5 +1,5 @@
 """Device-resident MTK NPT (isotropic or flexible-cell) on the GPU (port
-of ``autoforce_tpu/md/device_npt.py``, single model).
+of ``autoforce_tpu/md/device_npt.py``), on one SGPR model or a committee.
 
 The whole NPT step — particle and cell Nose-Hoover chains, the barostat
 velocity, the MTK position/cell drift and the SGPR forces with the virial
@@ -33,9 +33,9 @@ import torch
 from .. import units
 from ..engine import _total_cov, device_fetch
 from ..neighbors_device import det3
-from .device_md import (_beta_max, _go, _graft, _inloop_table, _nhc_half,
-                        _where, check_plain_surface, drive, new_chain,
-                        padded_rows)
+from .device_md import (_beta_max, _committee_e, _floor_max, _go, _graft,
+                        _inloop_table, _nhc_half, _where, check_plain_surface,
+                        drive, new_chain, padded_rows)
 from .nose_hoover import _as_mask
 
 # scaling and squaring of expm_sym: the Taylor polynomial's degree, the
@@ -128,14 +128,19 @@ def _min_perp_width(cell):
 
 
 def _sgpr_forces_virial(pos, cell, cfg, model, radii, vscale_atom, params,
-                        exponent, check_beta, aniso=False, ks=None):
+                        exponent, check_beta, aniso=False, ks=None,
+                        mean_e=None):
     """(energy, forces, dE/deps, beta_max) with eps a strain of positions
     and cell together, from ONE backward pass shared with the forces.
 
     ``aniso=False``: eps is an isotropic scalar, dE/deps = vol*tr(stress)
     (the potential-pressure numerator).  ``aniso=True``: eps is a full
     3x3 strain (rows transform as x -> x @ (I+eps)^T), dE/deps symmetrized
-    = vol * stress tensor — the flexible-cell MTK barostat's input."""
+    = vol * stress tensor — the flexible-cell MTK barostat's input.  With
+    ``mean_e`` the model is a committee (device_md._committee_e): the
+    gradient of its weighted energy gives the committee forces and
+    virial, as the host combines the experts' virials with the same
+    weights."""
     with torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         eps = torch.zeros((3, 3) if aniso else (), dtype=pos.dtype,
@@ -145,6 +150,14 @@ def _sgpr_forces_virial(pos, cell, cfg, model, radii, vscale_atom, params,
             p_s, cell_s = p @ sc.T, cell @ sc.T
         else:
             p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
+        if mean_e is not None:
+            e, bmax = _committee_e(p_s, cell_s, cfg, model, radii,
+                                   vscale_atom, mean_e, params, exponent, ks)
+            g, deps = torch.autograd.grad(e.sum(), (p, eps))
+            if aniso:
+                deps = 0.5 * (deps + deps.T)
+            return (e[0].detach(), -g * cfg.atom_mask[:, None], deps,
+                    _floor_max(bmax[0], check_beta))
         cov, lone, alpha = _total_cov(
             p_s, cell_s, cfg, model.X_desc, model.X_num, model.X_lone,
             radii, params, exponent, use_rev=True, ks=ks,
@@ -197,6 +210,7 @@ def md_chunk_npt(
     tbl_cell=None,  # (3, 3) cell the incoming table was built with
     offmax=None,  # max Sum|off| of the incoming table
     ks=None,  # the engine's kernel space (Engine.kernel_space())
+    mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
 ):
     """Up to ``nsteps`` MTK NPT steps on the device; early exit on a skin
     breach or an uncertainty trip.  The exact Trotter splitting of
@@ -213,7 +227,7 @@ def md_chunk_npt(
     def forces_fn(pos, cell, tbl):
         return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
                                    vscale_atom, params, exponent, check_beta,
-                                   aniso=aniso, ks=ks)
+                                   aniso=aniso, ks=ks, mean_e=mean_e)
 
     if tbl_cell is None:
         tbl_cell = cfg.cell  # host build: cfg.cell IS the table cell
@@ -357,8 +371,9 @@ class DeviceNPT:
     is re-entered on uncertainty trips (sampling at the exact step),
     bucket overflows and MIC violations.  Args mirror
     md/nose_hoover.MTKNPT, including the default ``isotropic=False``
-    (full flexible-cell MTK; ``mask`` gates strain components).
-    Committees and the device mesh are not ported yet."""
+    (full flexible-cell MTK; ``mask`` gates strain components).  A
+    committee calculator is served on the card as in DeviceMD.  The
+    device mesh is not ported yet."""
 
     def __init__(self, system, calc, dt, temperature_K, pressure_GPa=0.0,
                  tdamp=None, pdamp=None, bulk_modulus_GPa=None, chunk=50,
@@ -408,6 +423,7 @@ class DeviceNPT:
         self.vg = 0.0 if self.isotropic else np.zeros((3, 3))
         self._dev_state = None
         self._stall = 0
+        self._committee = {}  # committee_stack's staging across chains
 
     def _chain_masses(self):
         Q = np.full(3, self.kT * self.tdamp**2)
@@ -432,7 +448,7 @@ class DeviceNPT:
         from ..neighbors_device import device_rebuild_ok
 
         calc, system = self.calc, self.system
-        chain = new_chain(calc, system, self.check_beta)
+        chain = new_chain(calc, system, self.check_beta, self._committee)
         cfg = chain["cfg"]
         like = chain["pos0"]
 
@@ -533,7 +549,7 @@ class DeviceNPT:
                 mask=chain["mask"],
                 bch_dof=None if self.isotropic else self.ncell,
                 tbl_cell=chain["tbl_cell"], offmax=chain["offmax"],
-                ks=chain["ks"], **inloop_kw,
+                ks=chain["ks"], mean_e=chain["mean_e"], **inloop_kw,
             )
             pos, vel, cell, f, e, beta_max, i = out[:7]
             self._dev_state = out[7:12]

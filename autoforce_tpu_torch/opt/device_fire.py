@@ -1,5 +1,5 @@
 """Device-resident structure relaxation: FIRE on the GPU (port of
-``autoforce_tpu/opt/device_fire.py``, single model).
+``autoforce_tpu/opt/device_fire.py``), on one SGPR model or a committee.
 
 The whole FIRE loop — forces (SGPR predict), the velocity-mixing update,
 the adaptive (dt, alpha) schedule and the convergence test — runs as
@@ -95,6 +95,7 @@ def fire_chunk(
     sidx_atom=None,
     sidx_ok=None,
     ks=None,  # the engine's kernel space (Engine.kernel_space())
+    mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
 ):
     """Up to ``nsteps`` FIRE steps on the device; early exit on
     convergence (fmax < fmax_target, checked before stepping like
@@ -107,7 +108,7 @@ def fire_chunk(
 
     def forces_fn(pos, tbl):
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta, ks)
+                            params, exponent, check_beta, ks, mean_e)
 
     with torch.no_grad():
         st = _fire_loop(
@@ -204,6 +205,7 @@ def fire_cell_chunk(
     sidx_atom=None,
     sidx_ok=None,
     ks=None,
+    mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
 ):
     """Variable-cell FIRE on the device: the exact opt/filters.
     UnitCellFilter + opt/fire.FIRE composition — positions in the
@@ -222,7 +224,7 @@ def fire_cell_chunk(
     def forces_fn(pos, cell, tbl):
         return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
                                    vscale_atom, params, exponent, check_beta,
-                                   aniso=True, ks=ks)
+                                   aniso=True, ks=ks, mean_e=mean_e)
 
     with torch.no_grad():
         st = _fire_cell_loop(
@@ -325,7 +327,8 @@ class DeviceFIRE:
     geometry where the covloss threshold trips, the host samples, and
     relaxation resumes on the updated model.  ``cell=True`` relaxes the
     cell too (the opt/filters.UnitCellFilter composition on the card).
-    Committees and the device mesh are not ported yet."""
+    A committee calculator is served on the card as in DeviceMD.  The
+    device mesh is not ported yet."""
 
     def __init__(self, system, calc, dt=0.1, maxstep=0.2, dtmax=1.0, nmin=5,
                  finc=1.1, fdec=0.5, astart=0.1, fa=0.99, logfile=None,
@@ -358,6 +361,7 @@ class DeviceFIRE:
         self.fmax = float("inf")  # max |F| after the last chunk
         self._v = None
         self._stall = 0
+        self._committee = {}  # committee_stack's staging across chains
 
     def log(self, fmax, e):
         if self.logfile:
@@ -369,7 +373,7 @@ class DeviceFIRE:
         from ..neighbors_device import device_rebuild_ok
 
         calc, system = self.calc, self.system
-        chain = new_chain(calc, system, self.check_beta)
+        chain = new_chain(calc, system, self.check_beta, self._committee)
         cfg = chain["cfg"]
         like = chain["pos0"]
         # (re)build the FIRE velocity at the chain's padding: a sampling
@@ -483,7 +487,8 @@ class DeviceFIRE:
             common = (t(self.dt_cur), t(self.a), t(self.n_uphill), 0.5 * calc._nlcache.skin, fmax,
                       chain["beta_thresh"], n)
             kw = dict(params=eng.params, exponent=eng.exponent,
-                      check_beta=self.check_beta, ks=chain["ks"], **inloop_kw)
+                      check_beta=self.check_beta, ks=chain["ks"],
+                      mean_e=chain["mean_e"], **inloop_kw)
             if self.cell:
                 out = fire_cell_chunk(
                     chain["cfg"], chain["ma"], chain["radii"], chain["vs"],

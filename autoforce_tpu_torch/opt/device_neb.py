@@ -1,14 +1,16 @@
 """Device-resident NEB: the whole band relaxes on the GPU (port of
-``autoforce_tpu/opt/device_neb.py``, single model).
+``autoforce_tpu/opt/device_neb.py``), on one SGPR model or a committee.
 
 The JAX package evaluates the images with ``jax.vmap``; the SOAP kernels
 have no batching rule here, so the moving (interior) images are stacked
 as rows of one configuration instead: each image keeps its own neighbor
-indices and reverse slots, offset by its row block, and every band
-evaluation is one forward and one backward kernel launch (the energy is
-summed per image, its gradient is the forces of every image at once).
-The end points never move: their energies and uncertainties are
-evaluated once per chain of chunks.
+indices and reverse slots, offset by its row block, and its own cell, one
+per row, and every band evaluation is one forward and one backward
+kernel launch (the energy is summed per image, its gradient is the forces
+of every image at once).  Under a committee the experts' weights are
+taken per image (``md.device_md._committee_e``).  The end points never
+move: their energies and uncertainties are evaluated once per chain of
+chunks.
 
 Around that, the improved-tangent projection (Henkelman-Jonsson, JCP
 113, 9978 (2000)), the spring forces, the optional climbing image (JCP
@@ -33,14 +35,17 @@ import torch
 
 from ..engine import ConfigArrays, _total_cov, device_fetch
 from ..kernels import covloss_beta
-from ..md.device_md import _go, check_plain_surface, drive, skin_table
+from ..md.device_md import (VS_UNSEEN, _committee_e, _floor_max, _go,
+                            check_plain_surface, committee_models,
+                            committee_stack, drive, skin_table)
 from .device_fire import _fire_update
 
 
 def stack_images(cfgs):
-    """One configuration whose rows are the rows of ``cfgs`` (same bucket
-    and cell): neighbor indices and reverse slots are offset by each
-    image's row block, so the images stay independent."""
+    """One configuration whose rows are the rows of ``cfgs`` (same
+    bucket): neighbor indices and reverse slots are offset by each
+    image's row block, so the images stay independent, and each row
+    carries its image's cell ((N, 3, 3), engine._env_rvec)."""
     n, k = cfgs[0].nbr_idx.shape
     rev = None
     if all(c.nbr_rev is not None for c in cfgs):
@@ -48,7 +53,7 @@ def stack_images(cfgs):
                                      c.nbr_rev) for r, c in enumerate(cfgs)])
     return ConfigArrays(
         positions=torch.cat([c.positions for c in cfgs]),
-        cell=cfgs[0].cell,
+        cell=torch.cat([c.cell.expand(n, 3, 3) for c in cfgs]),
         numbers=torch.cat([c.numbers for c in cfgs]),
         atom_mask=torch.cat([c.atom_mask for c in cfgs]),
         nbr_idx=torch.cat([c.nbr_idx + r * n for r, c in enumerate(cfgs)]),
@@ -60,12 +65,23 @@ def stack_images(cfgs):
 
 
 def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                check_beta, ks=None):
+                check_beta, ks=None, mean_e=None):
     """(e (R,), f (R, N, 3), beta_max (R,)) of R images of N rows each,
     ``pos`` (R, N, 3), stacked in ``cfg`` (:func:`stack_images`): one
     forward and one backward kernel launch for all of them; ``ks``: the
-    engine's kernel space."""
+    engine's kernel space.  With ``mean_e`` the model is a committee:
+    each image's energy is its weighted committee energy and its beta
+    the committee floor."""
     R, N = pos.shape[:2]
+    if mean_e is not None:
+        with torch.enable_grad():
+            p = pos.detach().reshape(R * N, 3).requires_grad_(True)
+            e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
+                                   vscale_atom, mean_e, params, exponent, ks,
+                                   nimg=R)
+            (g,) = torch.autograd.grad(e.sum(), p)
+        f = (-g * cfg.atom_mask[:, None]).reshape(R, N, 3)
+        return e.detach(), f, _floor_max(bmax, check_beta)
     with torch.enable_grad():
         p = pos.detach().reshape(R * N, 3).requires_grad_(True)
         cov, lone, alpha = _total_cov(
@@ -92,7 +108,7 @@ def neb_chunk(
     cfg,  # ConfigArrays of the stacked interior images (stack_images)
     model,
     radii,
-    vscale_atom,  # (R_int * N,)
+    vscale_atom,  # (R_int * N,), or (E, R_int * N) under a committee
     pos,  # (R, N, 3) whole band, end points included
     e_end,  # (2,) end-point energies
     b_end,  # 0-d end-point uncertainty max
@@ -112,6 +128,7 @@ def neb_chunk(
     check_beta=True,
     climb=False,
     ks=None,  # the engine's kernel space (Engine.kernel_space())
+    mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
 ):
     """Up to ``nsteps`` band-FIRE iterations on the device; early exit on
     band convergence (max interior |F_neb| < fmax_target, checked before
@@ -121,7 +138,7 @@ def neb_chunk(
 
     def forces_int(p):
         return band_forces(p, cfg, model, radii, vscale_atom, params,
-                           exponent, check_beta, ks)
+                           exponent, check_beta, ks, mean_e)
 
     amask = cfg.atom_mask[: pos.shape[1], None]  # images share the system
     with torch.no_grad():
@@ -217,8 +234,9 @@ class DeviceNEB:
     ``run(fmax, steps)`` relaxes the interior images in place (host
     Optimizer.run contract) and returns True on convergence; ``barrier()``
     then evaluates max(E) - E[0] through the calculator.  The images must
-    share atoms, species and cell.  Committees and the device mesh are
-    not ported yet.
+    share atoms and species; each keeps its own cell.  A committee
+    calculator is served on the card, its weights taken per image.  The
+    device mesh is not ported yet.
     """
 
     def __init__(self, images, calc, k=0.1, climb=False, dt=0.05,
@@ -231,11 +249,6 @@ class DeviceNEB:
                 np.asarray(im.numbers), np.asarray(images[0].numbers)
             ):
                 raise ValueError("NEB images must share atom count/species")
-            if not np.array_equal(np.asarray(im.cell),
-                                  np.asarray(images[0].cell)):
-                raise NotImplementedError(
-                    "DeviceNEB stacks the images under one cell; images "
-                    "with different cells are not ported yet")
         if len(images) < 3:
             raise ValueError("a band needs at least one interior image")
         self.images = images
@@ -259,6 +272,7 @@ class DeviceNEB:
         self._npad = 0
         self._kpad = 0
         self._stall = 0
+        self._committee = {}  # committee_stack's staging across chains
 
     def _host_eval(self):
         """Evaluate every image through the full calculator (host NEB
@@ -286,23 +300,33 @@ class DeviceNEB:
                             table=t.pad_to(self._kpad))
             for s, t in zip(self.images, tables)
         ]
-        model = calc.model
-        ma = model.full_model_arrays()
-        vs = model.vscale_for(self.images[0].numbers)
-        # unseen species: the huge finite sentinel of DeviceMD
-        vs = np.where(np.isfinite(vs), vs, 1e8)
-        vs = np.concatenate([vs, np.zeros(self._npad - n0)])
         like = cfgs[0].positions
         dtype, dev = like.dtype, like.device
+        models = committee_models(calc)
+        if models:
+            ma, vs, mean_e = committee_stack(calc, self.images[0], models,
+                                             cfgs[0], self._committee)
+            mean_e = torch.as_tensor(mean_e, dtype=eng.model_dtype,
+                                     device=dev)
+        else:
+            model = calc.model
+            ma, mean_e = model.full_model_arrays(), None
+            vs = model.vscale_for(self.images[0].numbers)
+            vs = np.where(np.isfinite(vs), vs, VS_UNSEEN)
+            vs = np.concatenate([vs, np.zeros(self._npad - n0)])
         R = len(self.images)
         vs_t = torch.as_tensor(vs, dtype=dtype, device=dev)
+
+        def vs_rows(k):  # the per-atom rows of k stacked images
+            return vs_t.repeat(*([1] * (vs_t.dim() - 1)), k)
+
         ends = stack_images([cfgs[0], cfgs[-1]])
         pos = torch.stack([c.positions for c in cfgs])
         ks = eng.kernel_space()
         with torch.no_grad():
             e_end, _, b_end = band_forces(
-                pos[[0, -1]], ends, ma, eng.radii_table(), vs_t.repeat(2),
-                eng.params, eng.exponent, self.check_beta, ks)
+                pos[[0, -1]], ends, ma, eng.radii_table(), vs_rows(2),
+                eng.params, eng.exponent, self.check_beta, ks, mean_e)
         varr = np.zeros((R, self._npad, 3))
         if self._v is not None:
             varr[:, :n0] = self._v
@@ -310,8 +334,9 @@ class DeviceNEB:
             cfg=stack_images(cfgs[1:-1]),
             interior=cfgs[1:-1],
             ma=ma,
+            mean_e=mean_e,
             radii=eng.radii_table(),
-            vs=vs_t.repeat(R - 2),
+            vs=vs_rows(R - 2),
             pos=pos,
             e_end=e_end,
             b_end=b_end.max(),
@@ -399,7 +424,7 @@ class DeviceNEB:
                 0.5 * calc._nlcache.skin, fmax, chain["beta_thresh"], n,
                 self.k, self.params, params=eng.params,
                 exponent=eng.exponent, check_beta=self.check_beta,
-                climb=self.climb, ks=chain["ks"],
+                climb=self.climb, ks=chain["ks"], mean_e=chain["mean_e"],
             )
             # one host read for every boundary scalar
             dtc, a, nu, i_h, fm_h, bm_h = (float(x) for x in device_fetch(

@@ -182,6 +182,21 @@ class SgprModel:
         return float(e)
 
     # --------------------------------------------------------------- staging
+    def adopt_engine(self, engine):
+        """Point this model at another engine (committee experts share the
+        live engine's species table and kernel configuration).  Restages
+        whenever the species table differs: kernel values do not depend
+        on the table, but descriptor blocks and configs do."""
+        old = self.engine
+        if old is engine:
+            return
+        same_table = list(old.species) == list(engine.species)
+        self.engine = engine
+        if self.X and (self.X[0].desc is None
+                       or self.X[0].desc.shape[0] != engine.dim
+                       or not same_table):
+            self.restage()
+
     def restage(self):
         """Recompute inducing descriptors + data configs for the current
         species table (called when the table grows, and at load)."""

@@ -15,14 +15,16 @@ covariance=<model>, calculator=None, skin=1.2)``, at full width:
     tiling at a = 3.65 A;
   * NEB: a vacancy hop in fcc Cu (:func:`vacancy_hop`, 499 atoms), five
     interior images, ``DeviceNEB(k=0.1, climb=True, dt=0.05,
-    maxstep=0.1)``.
+    maxstep=0.1)``; then the same hop with the last end point's cell
+    strained along x and a cell per image (:func:`strained_band`).
 
 :func:`stress_rel_err` holds the float32 strain gradient (the kernels)
 against float64 (the plain versions) on the card, :func:`band_rel_err` the
 stacked NEB band's float32 energies and forces against each image alone in
 float64; :func:`chunk_probe`
 counts a driver's chunks, steps and kernel launches and runs its first
-chunk under CUDA's sync debug mode.
+chunk under CUDA's sync debug mode; :func:`evaluation_probe` checks that
+every force evaluation launches each kernel once.
 """
 
 from __future__ import annotations
@@ -145,8 +147,9 @@ def band_rel_err(band):
     ch = band._build_chain()
     cfg, ma, radii, vs = ch["cfg"], ch["ma"], ch["radii"], ch["vs"]
     pos = ch["pos"][1:-1]
+    mean_e = ch["mean_e"]
     e32, f32, _ = band_forces(pos, cfg, ma, radii, vs, eng.params,
-                              eng.exponent, False)
+                              eng.exponent, False, ch["ks"], mean_e)
     f64 = torch.float64
     n = pos.shape[1]
     e_ref, f_ref = [], []
@@ -155,8 +158,9 @@ def band_rel_err(band):
             one = one._replace(positions=one.positions.to(f64),
                                cell=one.cell.to(f64))
             e, f, _ = band_forces(one.positions[None], one, ma, radii.to(f64),
-                                  vs[r * n:(r + 1) * n].to(f64), eng.params,
-                                  eng.exponent, False)
+                                  vs[..., r * n:(r + 1) * n].to(f64),
+                                  eng.params, eng.exponent, False, ch["ks"],
+                                  mean_e)
             e_ref.append(e)
             f_ref.append(f)
     e_ref, f_ref = torch.cat(e_ref), torch.cat(f_ref)
@@ -211,6 +215,30 @@ def chunk_probe(module, name, ndone_at):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def evaluation_probe(module, name):
+    """Wrap the force function ``module.name`` (one evaluation of a
+    configuration or a band per call) while a driver runs: count its calls
+    and the calls that did not launch exactly one of each SOAP kernel.
+    Every call counts, the steps the loop issued ahead of its stop too."""
+    fn = getattr(module, name)
+    rec = dict(calls=0, off=0)
+
+    def wrapped(*a, **k):
+        before = launches()
+        out = fn(*a, **k)
+        after = launches()
+        rec["calls"] += 1
+        rec["off"] += any(after[key] - before[key] != 1 for key in after)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield rec
+    finally:
+        setattr(module, name, fn)
+
+
 def profile_window(run, steps):
     """(device kernels per step, device microseconds per step) of
     ``run()`` doing ``steps`` steps, traced with torch.profiler; (None,
@@ -246,3 +274,25 @@ def vacancy_hop(reps=(5, 5, 5)):
     pos[j] = hole
     last.set_positions(pos)
     return first, last
+
+
+def strained_band(first, last, nimages, strain=0.01):
+    """A band from ``first`` to ``last`` whose cells differ: the last end
+    point's cell stretched by ``strain`` along x (its atoms scaled with
+    it), and each image's cell and fractional coordinates interpolated
+    linearly between the ends, so the positions scale with the cells."""
+    last = last.copy()
+    cell = np.asarray(last.cell).copy()
+    cell[:, 0] *= 1.0 + strain
+    last.set_cell(cell, scale_atoms=True)
+    f0, f1 = first.scaled_positions(), last.scaled_positions()
+    c0, c1 = np.asarray(first.cell), np.asarray(last.cell)
+    images = []
+    for k in range(nimages):
+        t = k / (nimages - 1)
+        im = first.copy()
+        c = (1 - t) * c0 + t * c1
+        im.set_cell(c)
+        im.set_positions(((1 - t) * f0 + t * f1) @ c)
+        images.append(im)
+    return images

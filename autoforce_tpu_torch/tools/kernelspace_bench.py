@@ -188,10 +188,11 @@ def predict_rel_err(calc, system):
             (f32 - f64).abs().max().item(), f64.abs().max().item())
 
 
-def frozen_rate(calc, system, steps):
+def frozen_rate(calc, system, steps, warmup=CHUNK):
     """Frozen DeviceMD steps/s over ``steps`` steps on ``calc``'s model
-    (oracle detached, trip off) after one warm-up chunk; returns (steps/s,
-    the chunk probe's record of all its chunks)."""
+    (oracle detached, trip off) after one warm-up chunk of ``warmup``
+    steps; returns (steps/s, the chunk probe's record of all its
+    chunks)."""
     from ..md import device_md as dmd
     from ..system import maxwell_boltzmann_velocities
     from .driver_bench import chunk_probe
@@ -203,7 +204,7 @@ def frozen_rate(calc, system, steps):
     dyn = dmd.DeviceMD(s, calc, dt=2 * units.fs, temperature_K=TEMPERATURE_K,
                        friction=0.05, chunk=CHUNK, check_beta=False)
     with chunk_probe(dmd, "md_chunk", 5) as rec:
-        dyn.run(CHUNK)  # warm-up, its first chunk sync-checked
+        dyn.run(warmup)  # warm-up, its first chunk sync-checked
         torch.cuda.synchronize()
         t0 = time.time()
         dyn.run(steps)

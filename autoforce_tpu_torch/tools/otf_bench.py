@@ -129,7 +129,10 @@ def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
         prod_done = 0
         prod_exit = "steps"
         while prod_done < prod_steps:
-            sub = min(20, prod_steps - prod_done)
+            # two steps at a time: near max_inducing a run of twenty
+            # steps takes a minute or more of sampling, so the wall cap
+            # would overshoot by that much
+            sub = min(2, prod_steps - prod_done)
             dyn.run(sub)
             prod_done += sub
             if time.time() - t0 > prod_wall_cap:

@@ -40,15 +40,15 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
 7. Structure drivers (run right after phase 4; the workloads of
    ``autoforce_tpu_torch.tools.driver_bench``, the same model and
    calculator): ``DeviceMD(thermostat="nhc")`` 300 K, 2 fs, tdamp 50 fs,
-   300 warm-up + 300 timed steps, mean temperature within 15 % of 300 K;
+   300 warm-up + 150 timed steps, mean temperature within 15 % of 300 K;
    ``DeviceNPT`` as ``bench.py``'s ``npt_1k`` (isotropic, 0 GPa, pdamp
-   500 fs, 150 + 300 steps) for the rate, then at the model's own pressure
+   500 fs, 150 + 150 steps) for the rate, then at the model's own pressure
    on the snapshot 150 isotropic steps (the last 100 timed) and 100
    flexible steps with ``mask=(1, 1, 0)``: finite, volume within 5 % of
    the start, the masked strain component unmoved; the anisotropic dE/deps of
    ``_sgpr_forces_virial`` in float32 (kernels) against float64 (plain
    versions) within ``STRESS_REL_TOL``; ``DeviceFIRE`` as ``bench.py``'s
-   ``relax_fire_1k`` (150 + 300 iterations), then ``cell=True`` from
+   ``relax_fire_1k`` (150 + 150 iterations), then ``cell=True`` from
    a = 3.65 A to fmax 0.05 eV/A or 500 iterations, the energy dropping;
    ``DeviceNEB`` on a 499-atom vacancy hop (end points relaxed by
    ``DeviceFIRE``, counted as a path of their own; five interior images,
@@ -56,10 +56,14 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    exactly one launch of each kernel per band evaluation, and the band's
    stacked float32 energies and forces (the kernels) against each image
    alone in float64 (the plain versions) within ``BAND_E_TOL`` /
-   ``BAND_F_TOL``; then both kernels against their plain versions at the
-   stacked band's shape, as in phase 2.  Every driver launches both
-   kernels, and its first chunk runs under CUDA's sync debug mode "error"
-   (no host sync inside the steps but the documented breach reads).
+   ``BAND_F_TOL``; the same hop with the last end point's cell stretched
+   by 1 % along x and a cell per image (up to 50 iterations: finite
+   energies, one launch of each kernel per band evaluation, the stacked
+   band against each image alone as above); then both kernels against
+   their plain versions at the stacked band's shape, as in phase 2.  Every
+   driver launches both kernels, and its first chunk runs under CUDA's
+   sync debug mode "error" (no host sync inside the steps but the
+   documented breach reads).
 8. The kernel space (run right after phase 5; the workloads of
    ``autoforce_tpu_torch.tools.kernelspace_bench``).  (a) On phase 5's
    learned flagship model: ``kernel_block(method="jac")`` (the descriptor
@@ -78,19 +82,46 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    (plain versions), within 1e-9 relative.  (d) The flagship with
    ``chemical="rbf"`` and a Li-S pair term: a growth stage of 45 s
    (``KS_CAPS``), finite forces and positions, float32 predict against
-   float64 plain on the final snapshot, then 300 frozen ``DeviceMD`` steps
-   (first chunk sync-checked).
+   float64 plain on the final snapshot, then 60 frozen ``DeviceMD`` steps
+   timed after a first, sync-checked chunk of 10 steps.
+9. A Bayesian committee (run right after phase 8; the workloads of
+   ``autoforce_tpu_torch.tools.bcm_bench``, caps in ``BCM_CAPS``, a budget
+   of 150 s).  Phase 5's learned flagship model is saved as
+   ``bcm_1.pckl`` and found by ``BCMActiveCalculator(pckl="bcm.pckl",
+   max_inducing=256, max_data=8)`` as its live model; its first update
+   freezes it as expert 1.  (a) Growth under ``DeviceMD`` (400 K, 2 fs,
+   friction 0.05, trip armed) for 45 s: an expert frozen in the stage, at
+   least two models served, finite positions and forces.  (b) 200 frozen
+   committee MD steps (first chunk sync-checked): one launch of each
+   kernel per committee evaluation, whatever the number of experts; the
+   rate, device kernels and busy share per step.  (c) The device
+   committee in float32 (kernels) against the host committee in float64
+   (plain versions): 2e-4 eV/atom, force MAE 1e-2 eV/A; both sides'
+   weights.  (d) 100 isotropic NPT steps at the committee's own pressure
+   (potential and kinetic), from the crystal scaled to where its potential
+   pressure vanishes (at its NVT lattice constant it sits near -9 GPa and
+   expands without bound under any model of the oracle) and thermalized
+   by 50 Langevin steps: finite, volume within 5 %.  (e) 100 FIRE
+   iterations: the energy drops.
+   (f) A Li vacancy hop: ends relaxed by committee FIRE, five interior
+   images, climbing image, up to 100 iterations: a finite barrier, one
+   launch of each kernel per band evaluation, the stacked band against
+   each image alone as in phase 7.  (g) Both kernels against their plain
+   versions at the committee band's stacked shape, timed in phase 6.
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
    band's stacked rows, the learning path's staging and kernel_block
-   rows, and the Jacobian route's one-hot rows); a profiler breakdown of
-   the MD step.
+   rows, the Jacobian route's one-hot rows and the committee band's
+   rows); a profiler breakdown of the MD step.
 
-The line before the last is one JSON object with every kernel's numbers
-(launches split by path: serving MD, OTF learning, each structure
-driver and each kernel-space path); the last line is
-``{"ok": true, "device": {...}}``.
+Each phase logs its wall time; the whole script is held to 1000 s on an
+H100 (its time limit is 1200 s).  Before the last lines come JSON objects
+with each phase's numbers (``drivers``, ``otf``, ``kernel_space``,
+``committee``); the line before the card's is one JSON object with every
+kernel's numbers (launches split by path: serving MD, OTF learning, each
+structure driver, each kernel-space path and each committee path); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -136,9 +167,11 @@ JAC_KF_TOL = 1e-4
 # script's time limit.  Kernel HPO learning gets 30 s (about 5 records:
 # the record cap of 17 would take minutes more).  The chemical + pair
 # growth gets 45 s, which ends after its third or fourth update on an
-# H100 (m ~ 250-370); its frozen MD then runs 2-4 steps/s, the pair Gram
-# being plain float64 torch.
-KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=300)
+# H100 (m ~ 250-370); its frozen MD then runs 2-8 steps/s, the pair Gram
+# being plain float64 torch, so its rate is read over 60 steps after a
+# first, sync-checked chunk of 10.
+KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=60,
+               frozen_warmup=10)
 # the OTF phase's stages and caps: the flagship's sizes, thresholds and
 # step counts (bench.py measure_otf), with wall caps that keep the whole
 # script inside its time limit: growth ends by m >= 512 in under a minute
@@ -146,6 +179,11 @@ KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=300)
 # gets 6 minutes, long enough to reach max_inducing
 OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
                 prod_wall_cap=360.0)
+# the committee phase (9): the growth stage's wall cap and each driver's
+# steps; the phase's budget is 150 s, the script's ceiling 1000 s
+BCM_CAPS = dict(max_inducing=256, max_data=8, grow_wall_cap=45.0,
+                md_steps=200, npt_steps=100, fire_steps=100, neb_steps=100,
+                neb_end_steps=150)
 
 
 def log(*a):
@@ -505,12 +543,12 @@ def phase_drivers(card):
     temps = []
     t0 = time.time()
     for _ in range(3):
-        dyn.run(100)
+        dyn.run(50)
         temps.append(s.get_temperature())
-    rate = 300 / (time.time() - t0)
+    rate = 150 / (time.time() - t0)
     close("nvt_nhc")
     t_mean = float(np.mean(temps))
-    log(f"NVT-NHC [{card}]: {len(s)} atoms, {rate:.1f} steps/s over 300 steps "
+    log(f"NVT-NHC [{card}]: {len(s)} atoms, {rate:.1f} steps/s over 150 steps "
         f"(chunk 100), mean T {t_mean:.1f} K (bar 300 +- 15%); kernel launches "
         f"per step {per}")
     if not abs(t_mean / 300 - 1) <= 0.15:
@@ -556,8 +594,8 @@ def phase_drivers(card):
     per = check_probe("npt", rec)
     torch.cuda.synchronize()
     t0 = time.time()
-    dyn.run(300)
-    rate = 300 / (time.time() - t0)
+    dyn.run(150)
+    rate = 150 / (time.time() - t0)
     prof = profile("NPT", lambda: dyn.run(20), 20, 1.0 / rate)
     dvol_0 = s.volume / vol0 - 1
     ok_0 = np.isfinite(s.positions).all() and np.isfinite(s.cell).all()
@@ -585,8 +623,8 @@ def phase_drivers(card):
     dvol = s.volume / vol0 - 1
     moved = float(np.abs(cell[2] - cell_iso[2]).max()
                   + np.abs(cell[:, 2] - cell_iso[:, 2]).max())
-    log(f"NPT [{card}]: npt_1k (0 GPa) {rate:.1f} steps/s over 300 steps, "
-        f"volume {100 * dvol_0:+.2f} % after 470 steps (the model's pressure "
+    log(f"NPT [{card}]: npt_1k (0 GPa) {rate:.1f} steps/s over 150 steps, "
+        f"volume {100 * dvol_0:+.2f} % after 320 steps (the model's pressure "
         f"on the snapshot is {p_model:.2f} GPa: at 0 GPa the box expands and "
         f"rebuilds its tables in the loop, {per['soap_coeff_fwd']:.3f} forward "
         f"launches per warm-up step); at that pressure: isotropic "
@@ -630,8 +668,8 @@ def phase_drivers(card):
     per = check_probe("fire", rec)
     torch.cuda.synchronize()
     t0 = time.time()
-    opt.run(fmax=1e-12, steps=300)
-    rate = 300 / (time.time() - t0)
+    opt.run(fmax=1e-12, steps=150)
+    rate = 150 / (time.time() - t0)
     prof = profile("FIRE", lambda: opt.run(fmax=1e-12, steps=20), 20,
                    1.0 / rate)
     close("fire")
@@ -649,7 +687,7 @@ def phase_drivers(card):
     close("fire_cell")
     e1 = s.get_potential_energy()
     a_final = float(np.cbrt(s.volume / np.prod(sb.REPS_MD)))
-    log(f"FIRE [{card}]: {rate:.1f} iterations/s over 300 (chunk 150), "
+    log(f"FIRE [{card}]: {rate:.1f} iterations/s over 150 (chunk 150), "
         f"kernel launches per iteration {per}; variable cell from a = 3.65 "
         f"A: {copt.nsteps} iterations in {wall:.2f} s, converged {conv}, "
         f"final fmax {copt.fmax:.4f} eV/A, final a {a_final:.5f} A, energy "
@@ -717,6 +755,48 @@ def phase_drivers(card):
                           fmax=band.fmax, barrier=barrier,
                           launches_per_eval=per, band_e_rel_err=de / e_scale,
                           band_f_rel_err=df / f_scale)
+
+    # 7.6 NEB with a cell per image: the relaxed hop with the last end
+    # point's cell stretched by 1 % along x, the images' cells and
+    # fractional coordinates interpolated between the ends
+    t0 = time.time()
+    images = db.strained_band(ends[0], ends[1], 7)
+    for im in images:
+        im.calc = calc
+    cband = dneb.DeviceNEB(images, calc, k=0.1, climb=True, dt=0.05,
+                           maxstep=0.1, chunk=50, check_beta=False)
+    torch.cuda.synchronize()
+    db.reset_launches()
+    with db.evaluation_probe(dneb, "band_forces") as ev, \
+            db.chunk_probe(dneb, "neb_chunk", 9) as rec:
+        conv = cband.run(fmax=0.05, steps=50)
+    check_probe("neb_cell", rec, per_eval=True)
+    close("neb_cell")
+    es = np.array([im.get_potential_energy() for im in images])
+    evals = ev["calls"]
+    log(f"NEB, a cell per image [{card}]: cell x from "
+        f"{images[0].cell[0, 0]:.4f} to {images[-1].cell[0, 0]:.4f} A, "
+        f"{cband.nsteps} iterations ({evals} band evaluations) in "
+        f"{time.time() - t0:.2f} s, converged {conv}, final fmax "
+        f"{cband.fmax:.4f} eV/A, energies {es[0]:.4f} .. {es.max():.4f} eV; "
+        f"band evaluations without one launch of each kernel: {ev['off']}")
+    if not np.isfinite(es).all():
+        raise AssertionError("NEB with a cell per image: non-finite energies")
+    if ev["off"]:
+        raise AssertionError("NEB with a cell per image: not one launch of "
+                             "each kernel per band evaluation")
+    de, e_scale, df, f_scale, _ = db.band_rel_err(cband)
+    log(f"NEB band with a cell per image: float32 (kernels) vs each image "
+        f"alone in float64 (plain): energy {de / e_scale:.3e} of the largest "
+        f"|E| (tol {db.BAND_E_TOL:g}), forces {df / f_scale:.3e} of the "
+        f"largest |f| (tol {db.BAND_F_TOL:g})")
+    if not (de <= db.BAND_E_TOL * e_scale and df <= db.BAND_F_TOL * f_scale):
+        raise AssertionError("NEB band with a cell per image: float32 stacked "
+                             "evaluation disagrees with float64 per image")
+    numbers["neb_cell"] = dict(iterations=cband.nsteps, fmax=cband.fmax,
+                               wall_s=time.time() - t0, evaluations=evals,
+                               band_e_rel_err=de / e_scale,
+                               band_f_rel_err=df / f_scale)
     log(f"phase 7 took {time.time() - t_phase:.1f} s")
     print(json.dumps({"drivers": numbers}))
     return paths, (calc.engine.params, band_rows)
@@ -1067,7 +1147,8 @@ def phase_kernel_space(card):
     if not (e_err / nat < 2e-4 and f_err < 1e-2):
         raise AssertionError("chemical + pair predict misses the float32 bars")
     _reset_launches()
-    rate, rec = ksb.frozen_rate(calc_d, s_d, steps=KS_CAPS["frozen_steps"])
+    rate, rec = ksb.frozen_rate(calc_d, s_d, steps=KS_CAPS["frozen_steps"],
+                                warmup=KS_CAPS["frozen_warmup"])
     if not rec["sync_checked"]:
         raise AssertionError("chemical + pair MD: no chunk ran under the sync check")
     md_l = _launch_counts()
@@ -1082,6 +1163,235 @@ def phase_kernel_space(card):
                                 e_err_per_atom=e_err / nat, f_err_max=f_err)
     log(f"phase 8 (b-d) took {time.time() - t_phase:.1f} s")
     return paths, numbers
+
+
+def phase_committee(folder, card):
+    """9. A Bayesian committee on phase 5's learned flagship model, found
+    as ``bcm_1.pckl`` in ``folder`` by ``BCMActiveCalculator``'s restart:
+    (a) growth under DeviceMD (the first update freezes the flagship
+    model as expert 1); (b) frozen committee MD; (c) the device committee
+    in float32 against the host committee in float64 through the plain
+    versions; (d) NPT, (e) FIRE and (f) NEB on the committee.  Every
+    check prints its name, value and bound before it asserts.  Returns
+    ({path: launches}, numbers, the NEB band's stacked kernel inputs)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md import device_npt as dnpt
+    from autoforce_tpu_torch.opt import device_fire as dfire
+    from autoforce_tpu_torch.opt import device_neb as dneb
+    from autoforce_tpu_torch.opt.neb import interpolate_images
+    from autoforce_tpu_torch.system import maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import bcm_bench as bb
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools.otf_bench import make_lgps_system
+
+    t_phase = time.time()
+    fs = units.fs
+    T = bb.TEMPERATURE_K
+    paths, numbers = {}, {}
+
+    def check(name, value, bound, ok):
+        log(f"check {name}: {value} (bound {bound})")
+        if not ok:
+            raise AssertionError(f"committee: {name} = {value} misses {bound}")
+
+    def close(name):
+        got = db.launches()
+        check(f"{name} launched both kernels", got, "each > 0",
+              all(c > 0 for c in got.values()))
+        paths[name] = got
+        return got
+
+    # (a) restart and spawn, then growth
+    cap = BCM_CAPS["max_inducing"]
+    calc = bb.committee(folder, max_inducing=cap,
+                        max_data=BCM_CAPS["max_data"], dtype=torch.float32)
+    check("restart: the live model is phase 5's, (ndata, m)", calc.size,
+          f"m > {cap}, no expert yet", calc.size[1] > cap and not calc.experts)
+    s = make_lgps_system()
+    db.reset_launches()
+    g = bb.grow(calc, s, wall_cap=BCM_CAPS["grow_wall_cap"])
+    torch.cuda.synchronize()
+    close("bcm_grow")
+    log(f"committee growth [{card}]: {g['steps']} steps in "
+        f"{g['wall_s']:.1f} s; "
+        f"{g['experts']} frozen experts, {g['served']} models served; sizes "
+        f"(ndata, m) of the experts and the live model {g['sizes']}; "
+        f"fp_calls {g['fp_calls']}, updates {g['updates']}")
+    check("experts frozen during the growth stage", g["frozen_in_stage"],
+          ">= 1", g["frozen_in_stage"] >= 1)
+    check("models the committee serves", g["served"], ">= 2",
+          g["served"] >= 2)
+    check("positions finite after growth", g["positions_finite"], "True",
+          g["positions_finite"])
+    forces_ok = bool(np.isfinite(calc.results["forces"]).all())
+    check("forces finite after growth", forces_ok, "True", forces_ok)
+    numbers["grow"] = g
+
+    # (b) frozen committee MD
+    calc._calc = None
+    s2 = s.copy()
+    s2.calc = calc
+    maxwell_boltzmann_velocities(s2, T, seed=15)
+    dyn = dmd.DeviceMD(s2, calc, dt=2 * fs, temperature_K=T, friction=0.05,
+                       chunk=bb.CHUNK, check_beta=False)
+    steps = BCM_CAPS["md_steps"]
+    db.reset_launches()
+    with db.evaluation_probe(dmd, "_sgpr_forces") as ev, \
+            db.chunk_probe(dmd, "md_chunk", 5) as rec:
+        dyn.run(bb.CHUNK)  # its first chunk sync-checked
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dyn.run(steps - bb.CHUNK)
+        torch.cuda.synchronize()
+        rate = (steps - bb.CHUNK) / (time.time() - t0)
+    got = close("bcm_md")
+    check("committee MD: a chunk ran under the sync check",
+          rec["sync_checked"], "True", rec["sync_checked"])
+    nexp = len(dmd.committee_models(calc))
+    log(f"committee MD [{card}]: {nexp} models, {rec['steps']} steps in "
+        f"{rec['calls']} chunks, {rate:.2f} steps/s over the last "
+        f"{steps - bb.CHUNK}; {ev['calls']} committee evaluations (one per "
+        f"step, chunk start and in-loop rebuild, and the steps issued ahead "
+        f"of a chunk's stop); launches {got}")
+    check("committee MD steps", rec["steps"], f"== {steps}",
+          rec["steps"] == steps)
+    check("committee MD evaluations that did not launch each kernel once",
+          f"{ev['off']} of {ev['calls']}", "0", ev["off"] == 0)
+    prof = db.profile_window(lambda: dyn.run(20), 20)
+    busy = None if prof[0] is None else prof[1] / (1e6 / rate)
+    log(f"committee MD profile over 20 steps [{card}]: "
+        + ("not measured (no device time seen)" if prof[0] is None else
+           f"{prof[0]:.0f} device kernels per step, {prof[1]:.1f} us of "
+           f"device time per step, device busy {100 * busy:.1f}%"))
+    numbers["md"] = dict(models=nexp, steps_per_s=rate,
+                         evaluations=ev["calls"],
+                         steps=rec["steps"], chunks=rec["calls"],
+                         kernels_per_step=prof[0], device_us_per_step=prof[1],
+                         busy_share=busy)
+
+    # (c) float32 device committee against the float64 plain host committee
+    e_err, e_abs, f_err, f_mae, f_abs, w_dev, w_host = bb.committee_rel_err(
+        calc, s2)
+    nat = len(s2)
+    log(f"committee weights: device (float32) {np.round(w_dev, 6).tolist()}, "
+        f"host (float64 plain) {np.round(w_host, 6).tolist()}; |E| "
+        f"{e_abs:.4g} eV, largest |f| {f_abs:.4g} eV/A, largest force error "
+        f"{f_err:.3e} eV/A")
+    check("committee energy error, float32 kernels vs float64 plain",
+          f"{e_err / nat:.3e} eV/atom", "< 2e-4", e_err / nat < 2e-4)
+    check("committee force MAE, float32 kernels vs float64 plain",
+          f"{f_mae:.3e} eV/A", "< 1e-2", f_mae < 1e-2)
+    numbers["accuracy"] = dict(e_err_per_atom=e_err / nat, f_mae=f_mae,
+                               f_err_max=f_err, weights_device=w_dev.tolist(),
+                               weights_host=w_host.tolist())
+
+    # (d) isotropic NPT at the committee's own starting pressure, the
+    # barostat's (the potential and the kinetic term), from the crystal
+    # scaled to where the potential pressure vanishes (at its NVT lattice
+    # constant the crystal sits near -9 GPa, where a barostat expands it
+    # without bound under the oracle's single model and committee alike)
+    # and thermalized by 50 Langevin steps, so that the barostat does not
+    # start from the lattice's equipartition transient
+    p_crystal = bb.pressure_GPa(calc, make_lgps_system())
+    s3 = bb.at_zero_pressure(calc, make_lgps_system())
+    s3.calc = calc
+    maxwell_boltzmann_velocities(s3, T, seed=3)
+    dmd.DeviceMD(s3, calc, dt=2 * fs, temperature_K=T, friction=0.05,
+                 chunk=bb.CHUNK, check_beta=False).run(50)
+    p0 = bb.pressure_GPa(calc, s3, kinetic=True)
+    vol0 = s3.volume
+    db.reset_launches()
+    npt = dnpt.DeviceNPT(s3, calc, 2 * fs, temperature_K=T, pressure_GPa=p0,
+                         isotropic=True, tdamp=50 * fs, pdamp=500 * fs,
+                         chunk=bb.CHUNK, check_beta=False)
+    t0 = time.time()
+    npt.run(BCM_CAPS["npt_steps"])
+    torch.cuda.synchronize()
+    rate_npt = BCM_CAPS["npt_steps"] / (time.time() - t0)
+    close("bcm_npt")
+    dvol = s3.volume / vol0 - 1
+    finite = bool(np.isfinite(s3.positions).all()
+                  and np.isfinite(s3.cell).all())
+    log(f"committee NPT [{card}]: the crystal at {p_crystal:.3f} GPa, scaled "
+        f"to {vol0 / make_lgps_system().volume:.4f} of its volume; "
+        f"{BCM_CAPS['npt_steps']} isotropic steps at {p0:.3f} GPa in "
+        f"{BCM_CAPS['npt_steps'] / rate_npt:.2f} s ({rate_npt:.2f} steps/s, "
+        f"first call included)")
+    check("committee NPT state finite", finite, "True", finite)
+    check("committee NPT volume change", f"{100 * dvol:+.3f} %", "within 5 %",
+          abs(dvol) <= 0.05)
+    numbers["npt"] = dict(pressure_GPa=p0, crystal_pressure_GPa=p_crystal,
+                          volume_change=dvol, steps_per_s=rate_npt)
+
+    # (e) FIRE
+    s4 = make_lgps_system()
+    s4.calc = calc
+    e0 = s4.get_potential_energy()
+    db.reset_launches()
+    opt = dfire.DeviceFIRE(s4, calc, dt=0.05, chunk=bb.CHUNK, check_beta=False)
+    t0 = time.time()
+    opt.run(fmax=1e-12, steps=BCM_CAPS["fire_steps"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    close("bcm_fire")
+    e1 = s4.get_potential_energy()
+    log(f"committee FIRE [{card}]: {opt.nsteps} iterations in {wall:.2f} s, "
+        f"fmax {opt.fmax:.4f} eV/A")
+    check("committee FIRE energy drop", f"{e0:.4f} -> {e1:.4f} eV", "drops",
+          e1 < e0)
+    numbers["fire"] = dict(iterations=opt.nsteps, wall_s=wall, e0=e0, e1=e1,
+                           fmax=opt.fmax)
+
+    # (f) NEB: a Li vacancy hop, relaxed end points, five interior images
+    ends = bb.lgps_vacancy_hop(make_lgps_system())
+    db.reset_launches()
+    for im in ends:
+        im.calc = calc
+        dfire.DeviceFIRE(im, calc, chunk=bb.CHUNK, check_beta=False).run(
+            fmax=0.05, steps=BCM_CAPS["neb_end_steps"])
+    close("bcm_neb_ends")
+    images = interpolate_images(ends[0], ends[1], 7)
+    for im in images:
+        im.calc = calc
+    band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, dt=0.05,
+                          maxstep=0.1, chunk=bb.CHUNK, check_beta=False)
+    torch.cuda.synchronize()
+    db.reset_launches()
+    t0 = time.time()
+    with db.evaluation_probe(dneb, "band_forces") as ev:
+        conv = band.run(fmax=0.05, steps=BCM_CAPS["neb_steps"])
+    wall = time.time() - t0
+    close("bcm_neb")
+    evals = ev["calls"]
+    barrier = band.barrier()
+    log(f"committee NEB [{card}]: {len(images[0])} atoms x {len(images) - 2} "
+        f"moving images, {band.nsteps} iterations ({evals} band evaluations) "
+        f"in {wall:.2f} s, converged {conv}, final fmax {band.fmax:.4f} eV/A, "
+        f"barrier {barrier:+.4f} eV "
+        f"({'positive' if barrier > 0 else 'not positive'})")
+    check("committee NEB barrier finite", f"{barrier:+.4f} eV", "finite",
+          np.isfinite(barrier))
+    check("committee NEB band evaluations", evals, "> 0", evals > 0)
+    check("committee NEB band evaluations that did not launch each kernel "
+          "once", f"{ev['off']} of {evals}", "0", ev["off"] == 0)
+    de, e_scale, df, f_scale, rows = db.band_rel_err(band)
+    check("committee NEB band energy, float32 stacked vs float64 per image",
+          f"{de / e_scale:.3e} of the largest |E| {e_scale:.4g}",
+          f"<= {db.BAND_E_TOL:g}", de <= db.BAND_E_TOL * e_scale)
+    check("committee NEB band forces, float32 stacked vs float64 per image",
+          f"{df / f_scale:.3e} of the largest |f| {f_scale:.4g}",
+          f"<= {db.BAND_F_TOL:g}", df <= db.BAND_F_TOL * f_scale)
+    numbers["neb"] = dict(iterations=band.nsteps, evaluations=evals,
+                          wall_s=wall, fmax=band.fmax, barrier=barrier,
+                          band_e_rel_err=de / e_scale,
+                          band_f_rel_err=df / f_scale, rows=rows[0].shape[0])
+    numbers["wall_s"] = time.time() - t_phase
+    log(f"phase 9 (a-f) took {numbers['wall_s']:.1f} s (budget 150 s)")
+    return paths, numbers, (calc.engine.params, rows)
 
 
 def phase_profile(dyn, ms_per_step, card):
@@ -1234,7 +1544,16 @@ def run_phases(torch):
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}; "
         f"device 0: {kind}")
+    t_all = time.time()
+    clock = [time.time()]
+
+    def took(phase):
+        log(f"phase {phase} took {time.time() - clock[0]:.1f} s "
+            f"({time.time() - t_all:.1f} s in all)")
+        clock[0] = time.time()
+
     phase_build()
+    took(1)
     model = load_model(MODEL, device="cuda", dtype=torch.float32)
     model_ms = load_model(MODEL_MS, device="cuda", dtype=torch.float32)
     eng, eng_ms = model.engine, model_ms.engine
@@ -1250,18 +1569,23 @@ def run_phases(torch):
     }
     worst = phase_kernels(cases)
     del cases
+    took(2)
     phase_accuracy(model)
+    took(3)
     rates, launches, drift, md_inputs, dyn = phase_md(model, card)
+    took(4)
     driver_launches, neb_band = phase_drivers(card)
     # both kernels at the NEB band's shape: the interior images stacked
     worst.update(phase_kernels({"neb_band": neb_band + (both,)}))
     timing["neb_band"] = neb_band
+    took("7 with its kernel checks")
     k_md = timing["md_bucket"][1][0].shape[1]
     if md_inputs[0].shape[1] != k_md:
         log(f"note: MD bucket K={md_inputs[0].shape[1]} (phase 2 used {k_md})")
     timing["md_bucket"] = (eng.params, md_inputs)
     otf, calc, otf_launches = phase_otf(card)
     kb_errs, col_times, otf_inputs = phase_otf_columns(calc, card)
+    took(5)
     t8 = time.time()
     jac_errs, jac_times, jac_launches, onehot = phase_jacobian(calc, card)
     worst.update(phase_kernels({
@@ -1275,15 +1599,29 @@ def run_phases(torch):
     # the rows of one backward launch of kernel_block (64 columns)
     timing["otf_block_rows"] = (params, (rvec.repeat(64, 1, 1), sidx.repeat(64, 1),
                                          mask.repeat(64, 1), radii))
+    # phase 9 starts its committee from this learned model, saved as the
+    # committee's first model folder
+    from autoforce_tpu_torch.io.model_io import save_model
+
+    bcm_dir = os.path.join(os.getcwd(), "committee")
+    os.makedirs(bcm_dir)
+    save_model(calc.model, os.path.join(bcm_dir, "bcm_1.pckl"))
     del calc
     ks_launches, ks_numbers = phase_kernel_space(card)
     log(f"phase 8 took {time.time() - t8:.1f} s")
+    clock[0] = time.time()
+    bcm_launches, bcm_numbers, bcm_band = phase_committee(bcm_dir, card)
+    # (g) both kernels at the committee band's stacked shape
+    worst.update(phase_kernels({"bcm_neb_band": bcm_band + (both,)}))
+    timing["bcm_neb_band"] = bcm_band
+    took("9 with its kernel checks")
     rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
                                          **driver_launches,
                                          "kb_jac": jac_launches,
-                                         **ks_launches}, card)
+                                         **ks_launches, **bcm_launches}, card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
+    took(6)
     log(f"summary: {len(md_inputs[0])}-atom Cu Langevin MD median "
         f"{rates[1]:.1f} steps/s [{card}]; OTF {otf['natoms']}-atom "
         f"{otf['steps_per_sec_incl_learning']:.4f} steps/s including learning, "
@@ -1291,6 +1629,9 @@ def run_phases(torch):
         f"relative errors {kb_errs}; column timings {json.dumps(col_times)}; "
         f"Jacobian route errors {jac_errs}, timings {json.dumps(jac_times)}")
     print(json.dumps({"kernel_space": ks_numbers}))
+    print(json.dumps({"committee": bcm_numbers}))
+    log(f"chip_smoke took {time.time() - t_all:.1f} s after the card check "
+        f"(ceiling 1000 s)")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

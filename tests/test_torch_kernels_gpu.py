@@ -468,3 +468,89 @@ def test_kernel_space_predict_on_card(cuda):
         e64, f64, *_ = eng.predict(cfg64, ma, vs)
     assert abs(float(e32) - float(e64)) <= 1e-5 * max(abs(float(e64)), 1.0)
     assert (f32.double() - f64).abs().max().item() <= 1e-4 * f64.abs().max().item()
+
+
+@pytest.fixture
+def committee(cuda, tmp_path):
+    """A Lennard-Jones Cu committee learned on the CPU in float64 (at least
+    two experts), served on the card in float32 from its expert folders."""
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.calculator.bcm import BCMActiveCalculator
+    from autoforce_tpu_torch.calculator.oracles import LennardJones
+    from autoforce_tpu_torch.md import Langevin
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+
+    pckl = str(tmp_path / "bcm.pckl")
+    kernel = dict(cutoff=4.0, lmax=3, nmax=3)
+    calc = BCMActiveCalculator(
+        calculator=LennardJones(epsilon=0.15, sigma=2.3, rc=4.0), pckl=pckl,
+        logfile=None, kernel_kw=kernel, ediff=0.002, ediff_tot=0.01,
+        fdiff=0.02, noise_f=0.005, max_data=2, max_inducing=12, seed=5,
+        device="cpu", dtype=torch.float64)
+    s = bulk_fcc("Cu", 3.6).repeat((2, 2, 2))
+    s.rattle(0.05, seed=0)
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 500, seed=1)
+    dyn = Langevin(s, 2 * units.fs, 500, friction=0.02, seed=2)
+    for _ in range(30):
+        if len(calc.experts) >= 2:
+            break
+        dyn.run(5)
+    assert len(calc.experts) >= 2
+    served = BCMActiveCalculator(calculator=None, pckl=pckl, logfile=None,
+                                 kernel_kw=kernel, dtype=torch.float32)
+    big = bulk_fcc("Cu", 3.6).repeat((3, 3, 3))
+    big.rattle(0.05, seed=4)
+    return served, big
+
+
+def test_committee_step_float32_matches_float64_plain(committee):
+    """One committee evaluation on the card: one launch of each kernel for
+    every expert at once, and float32 through the kernels within the
+    bench.py:412 bars of the host committee in float64 through the plain
+    versions.  The weights themselves move with float32 rounding: each is
+    -log(c)/c of an expert's largest covloss, and on these small,
+    ill-conditioned experts 1 - ||choli k||^2 cancels most of its digits."""
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.tools import bcm_bench as bb
+
+    calc, s = committee
+    calc.calculate(s)
+    chain = dmd.new_chain(calc, s, False)
+    cfg, eng = chain["cfg"], calc.engine
+    assert chain["mean_e"] is not None and chain["ma"].X_desc.shape[0] >= 2
+    db.reset_launches()
+    dmd._sgpr_forces(cfg.positions, cfg, chain["ma"], chain["radii"],
+                     chain["vs"], eng.params, eng.exponent, True,
+                     chain["ks"], chain["mean_e"])
+    torch.cuda.synchronize()
+    assert db.launches() == {"soap_coeff_fwd": 1, "soap_coeff_bwd": 1}
+    e_err, e_abs, f_err, f_mae, f_abs, w_dev, w_host = bb.committee_rel_err(
+        calc, s)
+    assert e_err / len(s) < 2e-4, e_err
+    assert f_mae < 1e-2, f_mae
+    for w in (w_dev, w_host):
+        assert np.isfinite(w).all() and (w >= 0).all()
+        assert abs(w.sum() - 1.0) < 1e-9
+
+
+def test_neb_band_with_a_cell_per_image_on_card(cuda):
+    """A vacancy hop whose last end point is stretched along x, a cell per
+    image: one launch of each kernel per band evaluation, and the stacked
+    float32 band against each image alone in float64 plain."""
+    from autoforce_tpu_torch.opt import device_neb as dneb
+
+    calc = db.serving_calc()
+    first, last = db.vacancy_hop(reps=(4, 4, 4))
+    images = db.strained_band(first, last, 5)
+    assert images[-1].cell[0, 0] > images[0].cell[0, 0]
+    for im in images:
+        im.calc = calc
+    band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, dt=0.05,
+                          maxstep=0.1, chunk=8, check_beta=False)
+    with db.evaluation_probe(dneb, "band_forces") as ev:
+        band.run(fmax=1e-9, steps=16)
+    assert band.nsteps == 16 and ev["calls"] >= 16 and ev["off"] == 0, ev
+    de, e_scale, df, f_scale, _ = db.band_rel_err(band)
+    assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
+    assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)

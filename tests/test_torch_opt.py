@@ -205,6 +205,80 @@ def test_device_neb_matches_jax_and_host(folder, climb):
                                atol=1e-12)
 
 
+def cell_band(pkg, calc, nimages=5, strain=0.02):
+    """A band whose images differ in cell: the last end point's cell
+    stretched along x (its atoms scaled with it), each image's cell and
+    fractional coordinates interpolated between the ends."""
+    first, last = band(pkg, calc, 2)
+    cell = np.asarray(last.cell).copy()
+    cell[:, 0] *= 1.0 + strain
+    last.set_cell(cell, scale_atoms=True)
+    f0, f1 = first.scaled_positions(), last.scaled_positions()
+    c0, c1 = np.asarray(first.cell), np.asarray(last.cell)
+    images = []
+    for k in range(nimages):
+        t = k / (nimages - 1)
+        im = first.copy()
+        c = (1 - t) * c0 + t * c1
+        im.set_cell(c)
+        im.set_positions(((1 - t) * f0 + t * f1) @ c)
+        im.calc = calc
+        images.append(im)
+    return images
+
+
+def test_device_neb_images_with_their_own_cells_match_jax(folder):
+    """A band whose interior images carry different cells: each stacked
+    row keeps its image's cell, so the port's device NEB tracks the JAX
+    package's, which builds one configuration per image."""
+    out = {}
+    for pkg in (JAX, PORT):
+        c = make_calc(pkg, folder, 0.8)
+        images = cell_band(pkg, c)
+        assert len({float(im.cell[0, 0]) for im in images}) == len(images)
+        d = pkg["DeviceNEB"](images, c, k=0.1, climb=True, dt=0.05,
+                             maxstep=0.1, chunk=4, check_beta=False)
+        d.run(fmax=1e-9, steps=8)
+        assert d.nsteps == 8
+        out[id(pkg)] = ([im.positions.copy() for im in images], d.dt_cur,
+                        [im.get_potential_energy() for im in images])
+    j, t = out[id(JAX)], out[id(PORT)]
+    for a, b in zip(j[0], t[0]):
+        np.testing.assert_allclose(b, a, atol=1e-9)
+    np.testing.assert_allclose(t[1], j[1], rtol=1e-12)
+    np.testing.assert_allclose(t[2], j[2], atol=1e-9)
+
+
+def test_stacked_band_with_a_cell_per_image_matches_each_image(folder):
+    """The stacked rows of a band whose images differ in cell against each
+    image evaluated alone, and a single-cell band's stacked rows under
+    one (3, 3) cell against the same rows with a cell per row (float64)."""
+    from autoforce_tpu_torch.opt.device_neb import band_forces, stack_images
+
+    calc = make_calc(PORT, folder, 0.8)
+    eng = calc.engine
+    for images in (cell_band(PORT, calc), band(PORT, calc)):
+        d = DeviceNEB(images, calc, k=0.1, check_beta=False)
+        ch = d._build_chain()
+        cfg, ma, radii, vs = ch["cfg"], ch["ma"], ch["radii"], ch["vs"]
+        assert cfg.cell.shape == (cfg.npad, 3, 3)
+        pos = ch["pos"][1:-1]
+        args = (eng.params, eng.exponent, True, ch["ks"])
+        e, f, b = band_forces(pos, cfg, ma, radii, vs, *args)
+        n = pos.shape[1]
+        for r, one in enumerate(ch["interior"]):
+            e1, f1, b1 = band_forces(one.positions[None], one, ma, radii,
+                                     vs[r * n:(r + 1) * n], *args)
+            np.testing.assert_allclose(e[r].item(), e1.item(), atol=1e-10)
+            np.testing.assert_allclose(f[r].numpy(), f1[0].numpy(),
+                                       atol=1e-10)
+            np.testing.assert_allclose(b[r].item(), b1.item(), atol=1e-10)
+    # one cell for all rows, as the band stacked them before: the same bits
+    one_cell = cfg._replace(cell=ch["interior"][0].cell)
+    e0, f0, _ = band_forces(pos, one_cell, ma, radii, vs, *args)
+    assert torch.equal(e0, e) and torch.equal(f0, f)
+
+
 def _trip_visits(pkg, folder, make_driver, run, thresh):
     """Host calculator visits (driver step count, positions) of a run with
     the uncertainty trip armed at ``thresh``."""

@@ -1,4 +1,6 @@
 from .bcm import BCMActiveCalculator
+from .multitask import MultiTaskCalculator
 from .oracles import LennardJones, ZeroCalculator
 
-__all__ = ["BCMActiveCalculator", "LennardJones", "ZeroCalculator"]
+__all__ = ["BCMActiveCalculator", "LennardJones", "MultiTaskCalculator",
+           "ZeroCalculator"]

@@ -17,8 +17,9 @@ extra device round trips.
 The engine's whole kernel space is served (kernel expressions, alchemical
 mixing, pair terms), and ``kernel_hpo=k`` optimizes the kernel
 expression's hyperparameters every k-th model update
-(:mod:`..regression.hpo`).  Not ported: training from a reference torch
-folder (``include_folder``), metadynamics biases and the device mesh.
+(:mod:`..regression.hpo`).  A metadynamics bias (``calc.meta``, one of
+:mod:`.meta`) adds its energy and forces after each prediction.  Not
+ported: the device mesh.
 """
 
 from __future__ import annotations
@@ -87,6 +88,10 @@ class ActiveCalculator:
     too); ``skin`` is the Verlet skin of the neighbor cache and
     ``kpad_min`` a floor for the sticky neighbor-slot bucket."""
 
+    # the covariance block is fetched on every step, learning or not
+    # (MultiTaskCalculator's per-task energies read it)
+    _always_fetch_cov = False
+
     def __init__(
         self,
         covariance="pckl",
@@ -146,7 +151,7 @@ class ActiveCalculator:
         self.test = test
         self._last_test = 0
         self._ktest = 0
-        self.meta = None  # metadynamics biases are not ported
+        self.meta = None  # a metadynamics bias (calculator/meta.py)
         self.deltas = None
         self.updated = False
         self._update_args = {}
@@ -309,10 +314,18 @@ class ActiveCalculator:
     def post_calculate(self, timings):
         if self.active and self.test and self.step - self._last_test > self.test:
             self._test()
+        meta = ""
+        if self.meta is not None:
+            me = self.meta(self)
+            if me is not None:
+                self.results["energy"] = self.results["energy"] + me["energy"]
+                if "forces" in me:
+                    self.results["forces"] = self.results["forces"] + me["forces"]
+                meta = f"meta: {me['energy']}"
         self.log(
-            "{} {} {}".format(
+            "{} {} {} {}".format(
                 self.results["energy"], self.system.get_temperature(),
-                self.covlog,
+                self.covlog, meta,
             )
         )
         self.step += 1
@@ -372,12 +385,14 @@ class ActiveCalculator:
         e, f, w, cov, beta = self.engine.predict(self.cfg, ma, vs)
         # one device->host transfer per step: learning steps take the
         # (n, m) covariance rows (the sampling loop's β), serving steps
-        # only the per-atom β.  The β shortcut is taken only for the plain
-        # normalized dot kernel, as in the JAX package: the host k(x, x)
-        # (_host_alpha) and the device's differ for the mixed normed
-        # kernel, and mixing the two would shift the thresholds between
-        # learning and serving steps
-        want_cov = self.active or not self.engine.plain_kernel
+        # only the per-atom β, unless a metadynamics bias (SoapMeta reads
+        # the rows) or the multi-task energies need them.  The β shortcut
+        # is taken only for the plain normalized dot kernel, as in the JAX
+        # package: the host k(x, x) (_host_alpha) and the device's differ
+        # for the mixed normed kernel, and mixing the two would shift the
+        # thresholds between learning and serving steps
+        want_cov = (self.active or self._always_fetch_cov
+                    or self.meta is not None or not self.engine.plain_kernel)
         tail = cov[:n, :m] if want_cov else beta[:n]
         e, f, w, tail = device_fetch(e, f, w, tail)
         energy = float(e) + self.model.mean_energy(self.system.numbers)

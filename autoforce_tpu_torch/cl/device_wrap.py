@@ -1,6 +1,10 @@
 """Device-resident MD dispatch for cl.md (dynamics='DEVICE'), port of
-``autoforce_tpu/cl/device_wrap.py``.  Replica ensembles
-(``replicas > 1``) are not ported yet."""
+``autoforce_tpu/cl/device_wrap.py``.
+
+``replicas = R`` in ARGS runs an R-walker ensemble (md/replica_md.py):
+rattled, re-thermalized copies of the input structure, all learning into
+one model; frames of walker 0 are written to the trajectory.
+"""
 
 from .. import units
 from ..md.device_md import DeviceMD
@@ -19,13 +23,23 @@ def _run_chunked(dyn, picos, dt, write_frame, loginterval):
 def run_device_md(atoms, calc, dt, temperature_K, friction, picos,
                   write_frame, loginterval, thermostat="auto", tdamp=None,
                   replicas=1):
+    kw = dict(temperature_K=temperature_K, friction=friction / units.fs,
+              chunk=max(loginterval, 25), thermostat=thermostat,
+              tdamp=tdamp * units.fs if tdamp else None)
     if replicas and int(replicas) > 1:
-        raise NotImplementedError("replica MD (replicas > 1) is not ported yet")
-    dyn = DeviceMD(
-        atoms, calc, dt * units.fs, temperature_K=temperature_K,
-        friction=friction / units.fs, chunk=max(loginterval, 25),
-        thermostat=thermostat, tdamp=tdamp * units.fs if tdamp else None,
-    )
+        from ..md.replica_md import ReplicaMD
+        from ..system import maxwell_boltzmann_velocities
+
+        systems = [atoms]
+        for r in range(1, int(replicas)):
+            s = atoms.copy()
+            s.rattle(0.02, seed=r)
+            maxwell_boltzmann_velocities(s, temperature_K or 300, seed=r)
+            s.calc = calc
+            systems.append(s)
+        dyn = ReplicaMD(systems, calc, dt * units.fs, **kw)
+    else:
+        dyn = DeviceMD(atoms, calc, dt * units.fs, **kw)
     _run_chunked(dyn, picos, dt, write_frame, loginterval)
 
 

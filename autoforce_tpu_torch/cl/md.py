@@ -176,6 +176,8 @@ def md(
                 atoms, dt * units.fs, temperature_K=T, taut=tdamp * units.fs
             )
         dyn.attach(write_frame, loginterval)
+        if calc.meta is not None:
+            dyn.attach(calc.meta.update)
         steps = int(picos * 1000 / dt) if picos > 0 else int(-picos)
         dyn.run(steps)
     return atoms

@@ -16,6 +16,7 @@ calls a small set of functions on padded, statically-shaped tensors:
                             ``kernel_col_batch`` are its one-env cases)
   * ``kernel_block_fn``   — the same against the whole inducing set
                             (add_data)
+  * ``meta_covloss_fn``   — the ActiveMeta bias energy and its gradient
 
   * ``kernel_block_jac_fn`` — the same block through the descriptor
                             Jacobian (one one-hot backward-kernel launch,
@@ -54,6 +55,7 @@ from .kernels import (
     base_kernel_grad,
     central_factor,
     covloss_beta,
+    covloss_bias,
     gram,
 )
 from .neighbors import neighbor_table, reverse_slots_host, round_up
@@ -280,6 +282,27 @@ def predict_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
                         alpha=alpha.detach())
     beta = torch.where(cfg.atom_mask, beta, torch.full_like(beta, -np.inf))
     return e.detach(), forces, virial, cov, beta
+
+
+def meta_covloss_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
+                    params, exponent, scale):
+    """The uncertainty-seeking bias energy E = -scale * sum_i beta_i
+    sqrt(vscale_i) and its position gradient (reference ActiveMeta,
+    active.py:1170-1186), through torch autograd; the plain dot kernel.
+    ``vscale_atom`` maps inf (a species without a scale) to 0 here, the
+    host meta convention."""
+    vs = torch.where(torch.isfinite(vscale_atom), vscale_atom,
+                     torch.zeros_like(vscale_atom))
+    with torch.enable_grad():
+        pos = cfg.positions.detach().requires_grad_(True)
+        p, lone = _config_descriptors(pos, cfg.cell, cfg, radii, params,
+                                      use_rev=True)
+        cov = gram(p, cfg.numbers, lone, model.X_desc, model.X_num,
+                   model.X_lone, exponent)
+        cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
+        e = -scale * covloss_bias(model.choli, cov, vs, cfg.atom_mask)
+        (g,) = torch.autograd.grad(e, pos)
+    return e.detach(), g
 
 
 @torch.no_grad()

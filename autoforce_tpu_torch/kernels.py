@@ -97,3 +97,15 @@ def covloss_beta(choli, cov, vscale_atom, m_mask, alpha=None):
         c = c / alpha
     beta = torch.sqrt(torch.clamp(1.0 - c, min=0.0))
     return beta * torch.sqrt(vscale_atom)
+
+
+def covloss_bias(choli, cov, meta_vs, atom_mask):
+    """sum_i beta_i sqrt(meta_vs_i) over the atoms of ``atom_mask``, the
+    ActiveMeta bias of the plain dot kernel (reference active.py:1170-1186;
+    ``engine.meta_covloss_fn``): beta_i = sqrt(1 - ||choli @ k_i||^2)
+    with 1 - c clipped at 1e-12, where sqrt' stays finite.  c sits next to
+    1, so it is summed in the type of ``cov`` (the model's float64)."""
+    b = choli @ cov.T  # (M, n)
+    c = (b * b).sum(dim=0)
+    beta = torch.sqrt(torch.clamp(1.0 - c, min=1e-12))
+    return (beta * torch.sqrt(meta_vs) * atom_mask).sum()

@@ -30,6 +30,12 @@ frozen experts) is served on the card as well (:func:`_committee_e`): the
 descriptors are computed once per step for every expert, so each SOAP
 kernel still launches once per step whatever the number of experts.
 
+R walkers that share one model (:func:`md_chunk_replicas`,
+``md/replica_md.py``) are stacked as rows of one configuration, so an
+ensemble step too launches each SOAP kernel once.  The ActiveMeta bias
+(``calculator/meta.py``) is fused into the differentiated energy of the
+step, on one model or on a committee's floor.
+
 :func:`drive` is the loop machinery shared by every device driver of the
 port (this module, md/device_npt.py, opt/device_fire.py,
 opt/device_neb.py).
@@ -46,7 +52,7 @@ import torch
 
 from .. import units
 from ..engine import ConfigArrays, ModelArrays, _total_cov, device_fetch
-from ..kernels import covloss_beta
+from ..kernels import covloss_beta, covloss_bias
 
 
 _W3 = 1.0 / (2.0 - 2.0 ** (1.0 / 3.0))
@@ -89,19 +95,36 @@ def _nhc_half(KE2, vxi, xi, Q, kT, dof, dt, nc=2):
 
 
 def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                 check_beta, ks=None, mean_e=None):
+                 check_beta, ks=None, mean_e=None, nimg=None, meta_scale=None,
+                 meta_vs=None):
     """(energy, forces, beta_max) of one configuration under one SGPR
     model — the physics of the device MD step (predict_fn minus virial);
     ``ks``: the engine's kernel space (None: the plain dot kernel).  With
-    ``mean_e`` the model is a committee (:func:`_committee_e`)."""
+    ``mean_e`` the model is a committee (:func:`_committee_e`).
+
+    ``nimg``: ``cfg`` stacks that many images (walkers) of equal row
+    counts; the energy and beta_max are then given per image, (nimg,),
+    and the forces of all of them come from one backward.
+
+    ``meta_scale`` / ``meta_vs`` fuse the ActiveMeta uncertainty-seeking
+    bias ``E -= meta_scale * sum_i beta_i sqrt(meta_vs_i)`` into the
+    differentiated energy (the formula of :func:`engine.meta_covloss_fn`;
+    under a committee the committee floor, :func:`_committee_e`), so one
+    backward gives the biased forces and the step launches each SOAP kernel
+    once.  ``meta_vs`` maps a species without a scale to 0, the host meta
+    convention, not to :data:`VS_UNSEEN`."""
+    k = nimg or 1
     if mean_e is not None:
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
             e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
-                                   vscale_atom, mean_e, params, exponent, ks)
+                                   vscale_atom, mean_e, params, exponent, ks,
+                                   nimg=k, meta_scale=meta_scale,
+                                   meta_vs=meta_vs)
             (g,) = torch.autograd.grad(e.sum(), p)
         f = -g * cfg.atom_mask[:, None]
-        return e[0].detach(), f, _floor_max(bmax[0], check_beta)
+        e, bmax = e.detach(), _floor_max(bmax, check_beta)
+        return (e, f, bmax) if nimg else (e[0], f, bmax[0])
     with torch.enable_grad():
         p = pos.detach().requires_grad_(True)
         cov, lone, alpha = _total_cov(
@@ -110,15 +133,20 @@ def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
             pair_d=model.pair_d, pair_mask=model.pair_mask,
         )
         cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
-        e = (cov @ model.mu).sum()
-        (g,) = torch.autograd.grad(e, p)
+        e = cov @ model.mu
+        e = e.reshape(k, -1).sum(1) if nimg else e.sum()
+        if meta_scale is not None:
+            e = e - meta_scale * covloss_bias(model.choli, cov, meta_vs,
+                                              cfg.atom_mask)
+        (g,) = torch.autograd.grad(e.sum(), p)
     f = -g * cfg.atom_mask[:, None]
     return e.detach(), f, _beta_max(cov.detach(), cfg, model, vscale_atom,
-                                    alpha, check_beta, pos)
+                                    alpha, check_beta, pos, nimg)
 
 
 def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
-                 exponent, ks=None, nimg=1, weights=False):
+                 exponent, ks=None, nimg=1, weights=False, meta_scale=None,
+                 meta_vs=None):
     """(weighted committee energy, committee covloss floor max), one of
     each per image, at positions ``p`` under ``cell``: the physics that
     every device driver serving a Bayesian committee shares.  ``cfg`` may
@@ -135,7 +163,13 @@ def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
     without autograd as the host combination is, so differentiating the
     energy gives the committee forces and virial.  The sampling trigger is
     the committee floor ``min_k beta_k``.  ``weights``: also return the
-    (E, R) weights."""
+    (E, R) weights.
+
+    ``meta_scale`` / ``meta_vs`` ((E, N), a species without a scale at 0)
+    add the ActiveMeta bias on the committee floor, ``E -= scale * sum_i
+    min_k beta_ki sqrt(meta_vs_ki)`` with 1 - c clipped at 1e-12, as the
+    JAX package defines it; this term is differentiated (the minimum
+    shares its gradient among tied experts), the weights are not."""
     E, mcap = models.m_mask.shape
 
     def flat(t):  # (E, mcap, ...) -> (E * mcap, ...)
@@ -157,10 +191,13 @@ def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
     cov = cov * (cfg.atom_mask[None, :, None] & models.m_mask[:, None, :])
     e_k = (cov @ models.mu[..., None])[..., 0]  # (E, N)
     e_k = e_k.reshape(E, nimg, N // nimg).sum(-1)  # (E, R)
-    with torch.no_grad():
-        mm = models.m_mask.to(cov.dtype)[:, None, :]
+    mm = models.m_mask.to(cov.dtype)[:, None, :]
+    # the covloss c under autograd only where the bias differentiates it
+    with contextlib.nullcontext() if meta_scale is not None else \
+            torch.no_grad():
         b = (models.choli * mm) @ (cov * mm).transpose(1, 2)  # (E, mcap, N)
         c = (b * b).sum(1) / alpha
+    with torch.no_grad():
         trig = torch.sqrt(torch.clamp(1.0 - c, min=0.0)) * torch.sqrt(
             vscale_atoms)
         betas = torch.where(cfg.atom_mask[None, :], trig,
@@ -174,6 +211,13 @@ def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
                         torch.full_like(scale, 1.0 / E))
         bmax = betas.amin(0).amax(-1)  # (R,)
     e_tot = (w * (e_k + mean_e[:, None])).sum(0)
+    if meta_scale is not None:
+        # 1e-12 floor, not 0: sqrt'(0) = inf would make the bias forces NaN
+        # where an expert knows an environment exactly
+        floor = (torch.sqrt(torch.clamp(1.0 - c, min=1e-12))
+                 * torch.sqrt(meta_vs)).amin(0)  # (N,)
+        floor = torch.where(cfg.atom_mask, floor, torch.zeros_like(floor))
+        e_tot = e_tot - meta_scale * floor.reshape(nimg, N // nimg).sum(-1)
     return (e_tot, bmax, w) if weights else (e_tot, bmax)
 
 
@@ -182,15 +226,17 @@ def _floor_max(bmax, check_beta):
     return bmax if check_beta else torch.zeros_like(bmax)
 
 
-def _beta_max(cov, cfg, model, vscale_atom, alpha, check_beta, pos):
-    """Largest per-atom uncertainty of a configuration (0 when the trip
-    is off)."""
+def _beta_max(cov, cfg, model, vscale_atom, alpha, check_beta, pos,
+              nimg=None):
+    """Largest per-atom uncertainty of a configuration, or of each of its
+    ``nimg`` stacked images (0 when the trip is off)."""
     if not check_beta:
-        return torch.zeros((), dtype=pos.dtype, device=pos.device)
+        return torch.zeros(() if nimg is None else (nimg,), dtype=pos.dtype,
+                           device=pos.device)
     beta = covloss_beta(model.choli, cov, vscale_atom, model.m_mask,
                         alpha=alpha.detach())
-    return torch.where(cfg.atom_mask, beta,
-                       torch.full_like(beta, -math.inf)).max()
+    beta = torch.where(cfg.atom_mask, beta, torch.full_like(beta, -math.inf))
+    return beta.max() if nimg is None else beta.reshape(nimg, -1).amax(1)
 
 
 def _graft(cfg, tbl):
@@ -201,14 +247,16 @@ def _graft(cfg, tbl):
                         nbr_rev=rv)
 
 
-def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok):
+def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep=1):
     """In-loop rebuild plumbing: (cfg_with, tbl0, rebuild_fn).
     ``cfg_with(tbl)`` grafts a neighbor-table tuple onto ``cfg``; ``tbl0``
     is the incoming table; ``rebuild_fn(pos, cell=None) -> (tbl, ok)``
     rebuilds it from device positions under ``cell`` (the moving cell of
     the NPT and variable-cell FIRE loops; ``cfg.cell`` by default);
     ok=False on bucket overflow, int8 offset overflow or asymmetry — the
-    host path then takes over."""
+    host path then takes over.  ``nrep``: ``cfg`` stacks that many walkers
+    of equal row counts under one cell (:func:`md_chunk_replicas`); each
+    walker's table is rebuilt from its own rows and offset by its block."""
     use_rev = cfg.nbr_rev is not None
 
     def cfg_with(tbl):
@@ -223,10 +271,19 @@ def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok):
     off_dtype = cfg.nbr_off.dtype
 
     def rebuild_fn(pos, cell=None):
-        idx, off, mask, kmax, off_over = device_neighbor_table(
-            pos, cfg.cell if cell is None else cell, cfg.atom_mask,
-            rebuild_cut, kpad
-        )
+        cell = cfg.cell if cell is None else cell
+        if nrep == 1:
+            idx, off, mask, kmax, off_over = device_neighbor_table(
+                pos, cell, cfg.atom_mask, rebuild_cut, kpad)
+        else:
+            n = pos.shape[0] // nrep
+            idx, off, mask, kmax, off_over = device_neighbor_table(
+                pos.reshape(nrep, n, 3), cell,
+                cfg.atom_mask.reshape(nrep, n), rebuild_cut, kpad)
+            block = torch.arange(nrep, dtype=idx.dtype, device=idx.device)
+            idx = (idx + n * block[:, None, None]).reshape(nrep * n, kpad)
+            off = off.reshape(nrep * n, kpad, 3)
+            mask = mask.reshape(nrep * n, kpad)
         off = off.to(off_dtype)
         sx = sidx_atom[idx.long()]
         mask = mask & sidx_ok[idx.long()]
@@ -314,7 +371,8 @@ def _go(nsteps, beta_thresh=None, fmax_target=None):
     def go(st):
         g = st["ok"] & (st["i"] < nsteps)
         if beta_thresh is not None:
-            g = g & (st["beta"] < beta_thresh)
+            b = st["beta"]  # one per walker in a replica chunk
+            g = g & ((b.max() if b.dim() else b) < beta_thresh)
         if fmax_target is not None:
             g = g & (st["fmax"] >= fmax_target)
         return g
@@ -402,7 +460,7 @@ def _noise(gen, shape, dtype, seed, step):
 def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
                 friction, skin_half, beta_thresh, nsteps, thermostat,
                 check_beta, seed=0, step0=0, tbl=None, rebuild_fn=None,
-                nhc=None):
+                nhc=None, nrep=1):
     """The integrator loop.
 
     ``forces_fn(pos, tbl) -> (e, f, beta_max)`` supplies the physics; the
@@ -411,6 +469,11 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
     atom mask; ``nhc``: (Q (3,), dof, vxi (3,), xi (3,)) of the chain
     (thermostat "nhc").  Returns (pos, vel, f, e, beta_max, ndone, tbl,
     pos0, vxi, xi) with ``ndone`` a 0-d device tensor.
+
+    ``nrep`` > 1: the rows are that many walkers' blocks of equal size
+    (:func:`md_chunk_replicas`); ``seed`` is then a sequence of one noise
+    stream per walker, the chain state is (nrep, 3) and ``forces_fn``
+    gives one energy and one beta_max per walker.
 
     With ``rebuild_fn`` a skin breach does not end the loop: the table is
     rebuilt from the breached positions (``rebuild_fn(pos) -> (tbl,
@@ -429,9 +492,23 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
     gen = torch.Generator(device=dev) if thermostat == "langevin" else None
 
     breach, with_rebuild = skin_table(amask, skin_half, rebuild_fn)
+    nper = pos_init.shape[0] // nrep
 
     def ke2(vel):
-        return (masses * vel * vel * amask).sum()
+        k = masses * vel * vel * amask
+        return k.sum() if nrep == 1 else k.reshape(nrep, -1).sum(1)
+
+    def scaled(vel, sc):  # each walker's velocities times its chain scale
+        if nrep == 1:
+            return vel * sc
+        return (vel.reshape(nrep, nper, 3) * sc[:, None, None]).reshape(
+            vel.shape)
+
+    def noise(it):
+        if nrep == 1:
+            return _noise(gen, velocities.shape, dtype, seed, step0 + it)
+        return torch.cat([_noise(gen, (nper, 3), dtype, sd, step0 + it)
+                          for sd in seed])
 
     def step(st, it):
         pos, vel, f = st["pos"], st["vel"], st["f"]
@@ -441,20 +518,19 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
             # chain-half, B, drift, B, chain-half (md/nose_hoover.py step)
             s, _, vxi, xi = _nhc_half(ke2(vel), st["vxi"], st["xi"], Q, kT,
                                       dof, dt)
-            v = vel * s
+            v = scaled(vel, s)
             v = v + half * f / masses
             p = pos + dt * v
             e2, f2, b2 = forces_fn(p, st["tbl"])
             v = v + half * f2 / masses
             s, _, vxi, xi = _nhc_half(ke2(v), vxi, xi, Q, kT, dof, dt)
-            v = v * s
+            v = scaled(v, s)
             out.update(vxi=vxi, xi=xi)
         else:
             v = vel + half * f / masses  # B
             p = pos + half * v  # A
             if thermostat == "langevin":
-                noise = _noise(gen, v.shape, dtype, seed, step0 + it)
-                v = c1 * v + c2 * noise  # O
+                v = c1 * v + c2 * noise(it)  # O
             p = p + half * v  # A
             e2, f2, b2 = forces_fn(p, st["tbl"])
             v = v + half * f2 / masses  # B
@@ -513,6 +589,9 @@ def md_chunk(
     nhc_xi=None,  # (3,) chain positions
     ks=None,  # the engine's kernel space (Engine.kernel_space())
     mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
+    meta_scale=None,  # ActiveMeta bias strength (eV), fused into the step
+    meta_vs=None,  # (N,), or (E, N) under a committee: inf / unseen -> 0
+    nrep=1,  # walkers stacked in ``cfg`` (md_chunk_replicas)
 ):
     """Run up to ``nsteps`` MD steps on the device; early-exit on a skin
     breach or the uncertainty threshold.
@@ -520,14 +599,17 @@ def md_chunk(
     tensor; with ``rebuild=True`` also (tbl, pos0): the live table tuple
     (idx, off, sidx, mask[, rev]) and its build origin, for chaining into
     the next chunk; with ``thermostat="nhc"`` then (nhc_vxi, nhc_xi), the
-    chain state for the next chunk."""
+    chain state for the next chunk.  ``meta_scale`` / ``meta_vs`` bias the
+    surface with ActiveMeta (:func:`_sgpr_forces`)."""
     cfg_with, tbl0, rebuild_fn = _inloop_table(
-        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
+        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep
     )
+    nimg = nrep if nrep > 1 else None
 
     def forces_fn(pos, tbl):
         return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta, ks, mean_e)
+                            params, exponent, check_beta, ks, mean_e, nimg,
+                            meta_scale, meta_vs)
 
     nhc = None
     if thermostat == "nhc":
@@ -538,7 +620,7 @@ def md_chunk(
             masses, pos0, float(dt), float(kT), float(friction),
             float(skin_half), float(beta_thresh), int(nsteps), thermostat,
             check_beta, seed=seed, step0=step0, tbl=tbl0,
-            rebuild_fn=rebuild_fn, nhc=nhc,
+            rebuild_fn=rebuild_fn, nhc=nhc, nrep=nrep,
         )
     pos, vel, f, e, beta_max, i, tbl, pos0, vxi, xi = out
     ret = (pos, vel, f, e, beta_max, i)
@@ -549,13 +631,101 @@ def md_chunk(
     return ret
 
 
-def check_plain_surface(calc, what="DeviceMD"):
-    """The device chunks integrate the plain SGPR surface; a metadynamics
-    bias lives in the host ``calculate`` and would be dropped between
-    chunk boundaries, so it is refused (and not ported yet)."""
-    if getattr(calc, "meta", None) is not None:
+def md_chunk_replicas(cfgs, model, radii, vscale_atom, velocities, masses,
+                      pos0, dt, kT, friction, skin_half, beta_thresh,
+                      nsteps=20, seeds=(0,), **kw):
+    """R MD walkers that share one model, stepped in lockstep (the
+    counterpart of the JAX package's ``md_chunk_replicas``, which
+    ``vmap``s :func:`md_chunk`).
+
+    ``cfgs``: the walkers' configurations (one bucket, one cell), stacked
+    here as rows of one configuration (:func:`stack_images`), so each
+    ensemble step is one launch of each SOAP kernel, one Gram product and
+    one backward for all walkers.  ``velocities``, ``pos0``: (R, N, 3);
+    ``vscale_atom``: (N,) and ``masses``: (N, 1), shared.  Walker r draws
+    its Langevin noise from stream ``seeds[r]``, so it reproduces
+    ``md_chunk(..., seed=seeds[r])``; the NHC chain state ``nhc_vxi`` /
+    ``nhc_xi`` is (R, 3).  The chunk ends at the first uncertainty trip of
+    any walker, or at the first skin breach of any walker unless the
+    in-loop rebuild (``rebuild=True``, which rebuilds every walker's table)
+    serves it; ``kw``: as :func:`md_chunk`, with ``sidx_atom`` / ``sidx_ok``
+    of one walker.  Returns (pos, vel, f) of shape (R, N, 3), e (R,),
+    beta_max (R,), ndone, then what :func:`md_chunk` adds: the table and
+    its origin on the stacked rows, the chain state."""
+    R, N = velocities.shape[:2]
+    if kw.get("rebuild"):
+        kw["sidx_atom"] = kw["sidx_atom"].repeat(R)
+        kw["sidx_ok"] = kw["sidx_ok"].repeat(R)
+    out = md_chunk(stack_images(cfgs, shared_cell=True), model, radii,
+                   vscale_atom.repeat(R), velocities.reshape(R * N, 3),
+                   masses.repeat(R, 1), pos0.reshape(R * N, 3), dt, kT,
+                   friction, skin_half, beta_thresh, nsteps,
+                   seed=list(seeds), nrep=R, **kw)
+    pos, vel, f = (t.reshape(R, N, 3) for t in out[:3])
+    return (pos, vel, f) + tuple(out[3:])
+
+
+def stack_images(cfgs, shared_cell=False):
+    """One configuration whose rows are the rows of ``cfgs`` (same
+    bucket): neighbor indices and reverse slots are offset by each
+    image's row block, so the images stay independent, and each row
+    carries its image's cell ((N, 3, 3), engine._env_rvec) — or, with
+    ``shared_cell`` (walkers in one box), the first image's (3, 3)."""
+    n, k = cfgs[0].nbr_idx.shape
+    rev = None
+    if all(c.nbr_rev is not None for c in cfgs):
+        rev = torch.cat([torch.where(c.nbr_rev >= 0, c.nbr_rev + r * n * k,
+                                     c.nbr_rev) for r, c in enumerate(cfgs)])
+    cell = (cfgs[0].cell if shared_cell
+            else torch.cat([c.cell.expand(n, 3, 3) for c in cfgs]))
+    return ConfigArrays(
+        positions=torch.cat([c.positions for c in cfgs]),
+        cell=cell,
+        numbers=torch.cat([c.numbers for c in cfgs]),
+        atom_mask=torch.cat([c.atom_mask for c in cfgs]),
+        nbr_idx=torch.cat([c.nbr_idx + r * n for r, c in enumerate(cfgs)]),
+        nbr_off=torch.cat([c.nbr_off for c in cfgs]),
+        nbr_sidx=torch.cat([c.nbr_sidx for c in cfgs]),
+        nbr_mask=torch.cat([c.nbr_mask for c in cfgs]),
+        nbr_rev=rev,
+    )
+
+
+def check_plain_surface(calc, what="DeviceMD", allow_covloss_meta=False):
+    """The device chunks integrate the plain (possibly committee) SGPR
+    surface; a metadynamics bias or a per-step multi-task schedule acts in
+    the host ``calculate`` and would be dropped between chunk boundaries,
+    so it is refused.
+
+    With ``allow_covloss_meta`` an :class:`~..calculator.meta.ActiveMeta`
+    bias is admitted (kernel-space math without state, which the chunk
+    fuses into its energy gradient) and returned for the caller to wire
+    up.  A :class:`~..calculator.multitask.MultiTaskCalculator` with static
+    weights is a plain SGPR surface with ``mu = effective_mu(weights)``
+    and is admitted; weight schedules (``weights_sample``, ``weights_fin``)
+    and bond restraints (``ij``) are refused."""
+    meta = getattr(calc, "meta", None)
+    if meta is not None:
+        if allow_covloss_meta:
+            from ..calculator.meta import ActiveMeta
+
+            if isinstance(meta, ActiveMeta):
+                return meta
         raise NotImplementedError(
-            f"{what}: metadynamics is not ported yet")
+            f"{what} integrates the plain SGPR surface; this "
+            "metadynamics bias is applied per step by the host drivers "
+            "(md.Langevin / md.VelocityVerlet / md.NoseHooverNVT)")
+    from ..calculator.multitask import MultiTaskCalculator
+
+    if isinstance(calc, MultiTaskCalculator) and (
+            calc.weights_sample is not None or calc.weights_fin is not None
+            or (calc.ij is not None and len(calc.ij) > 0)):
+        raise NotImplementedError(
+            f"{what} integrates a fixed multi-task surface; per-step "
+            "weight schedules (thermodynamic integration, weights_sample) "
+            "and bond restraints are applied by the host calculate: use "
+            "the host MD drivers for those")
+    return None
 
 
 # vscale sentinel for a species a model has never seen: the host's inf
@@ -627,14 +797,16 @@ def committee_stack(calc, system, models, cfg, state):
     return stacked, np.stack(vs_rows), np.asarray(mean_rows)
 
 
-def new_chain(calc, system, check_beta, committee=None):
+def new_chain(calc, system, check_beta, committee=None, meta=False):
     """Device state shared by a chain of chunks of any device driver, from
     the calculator's current configuration: the config, model arrays,
     radii, uncertainty scale, masses, the table's build origin and the
     in-loop rebuild's species tables and cutoff, and the kernel space.
     Under a committee (``committee``: the driver's staging state of
     :func:`committee_stack`) ``ma`` carries the expert axis, ``vs`` is
-    (E, N) and ``mean_e`` holds the experts' mean energies (else None)."""
+    (E, N) and ``mean_e`` holds the experts' mean energies (else None).
+    With ``meta``, ``meta_vs`` holds the ActiveMeta bias's scale rows (a
+    species without a scale at 0, not :data:`VS_UNSEEN`)."""
     eng = calc.engine
     cfg = calc.cfg
     dtype, dev = cfg.positions.dtype, cfg.positions.device
@@ -642,9 +814,11 @@ def new_chain(calc, system, check_beta, committee=None):
     if models:
         ma, vs, mean_e = committee_stack(
             calc, system, models, cfg, {} if committee is None else committee)
+        meta_vs = np.where(vs >= VS_UNSEEN, 0.0, vs)
     else:
         ma, mean_e = calc.model.full_model_arrays(), None
         vs = calc.model.vscale_for(cfg.numbers.cpu().numpy())
+        meta_vs = np.where(np.isfinite(vs), vs, 0.0)
         vs = np.where(np.isfinite(vs), vs, VS_UNSEEN)
     npad = cfg.npad
     masses = np.ones((npad, 1))
@@ -669,6 +843,7 @@ def new_chain(calc, system, check_beta, committee=None):
         cut=eng.params.rc + calc._nlcache.skin,
         beta_thresh=calc.ediff if check_beta else np.inf,
         ks=eng.kernel_space(),
+        meta_vs=t(meta_vs) if meta else None,
     )
 
 
@@ -690,14 +865,23 @@ class DeviceMD:
     full ``calculate`` there.  Thermostats: BAOAB Langevin, a Nose-Hoover
     chain (``"nhc"``: M = 3, canonical and deterministic, the device
     counterpart of md/nose_hoover.NoseHooverNVT; its state is carried
-    across chunks on the card) or none (NVE)."""
+    across chunks on the card) or none (NVE).  An ActiveMeta bias
+    (``calc.meta``) is fused into the step's energy, on the plain dot
+    kernel only; a multi-task calculator with static weights serves its
+    combined surface."""
 
     def __init__(self, system, calc, dt, temperature_K=None, friction=0.01,
                  chunk=50, seed=0, check_beta=None, thermostat="auto",
                  tdamp=None):
         from ..neighbors_device import device_rebuild_ok
 
-        check_plain_surface(calc, "DeviceMD")
+        meta = check_plain_surface(calc, "DeviceMD", allow_covloss_meta=True)
+        if meta is not None and not calc.engine.plain_kernel:
+            raise NotImplementedError(
+                "the device-fused ActiveMeta needs the plain dot kernel (the "
+                "host bias formula, engine.meta_covloss_fn, is defined "
+                "there): use the host MD drivers")
+        self.meta_scale = float(meta.scale) if meta is not None else None
         self.system = system
         self.calc = calc
         self.dt = float(dt)
@@ -732,7 +916,7 @@ class DeviceMD:
         """Device state of a chain of chunks, from the calculator's
         current configuration."""
         chain = new_chain(self.calc, self.system, self.check_beta,
-                          self._committee)
+                          self._committee, meta=self.meta_scale is not None)
         chain["vel"] = padded_rows(self.system.get_velocities(),
                                    chain["cfg"].npad, chain["pos0"])
         return chain
@@ -796,7 +980,8 @@ class DeviceMD:
                 rebuild=inloop, rebuild_cut=chain["cut"],
                 sidx_atom=chain["sidx_atom"], sidx_ok=chain["sidx_ok"],
                 seed=self.seed, step0=self.nsteps, ks=chain["ks"],
-                mean_e=chain["mean_e"], **nhc_kw,
+                mean_e=chain["mean_e"], meta_scale=self.meta_scale,
+                meta_vs=chain["meta_vs"], **nhc_kw,
             )
             pos, vel, f, e, beta_max, i = out[:6]
             if inloop:

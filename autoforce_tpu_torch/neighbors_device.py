@@ -58,56 +58,67 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
     """Rebuild the padded neighbor table on the device.
 
     Args:
-        positions: (N, 3) current (possibly padded) positions.
+        positions: (N, 3) current (possibly padded) positions, or (R, N, 3)
+            for R independent systems under one cell (the walkers of a
+            replica ensemble): each gets its own table, indices within it.
         cell: (3, 3) rows = lattice vectors.
-        atom_mask: (N,) bool; padded rows produce/receive no pairs.
+        atom_mask: (N,) bool (or (R, N)); padded rows produce/receive no
+            pairs.
         cutoff: scalar (rc + skin), float or 0-d tensor.
         kpad: neighbor-slot count of the existing table bucket.
     Returns:
         (idx (N, kpad) i32, off (N, kpad, 3) i8, mask (N, kpad) bool,
-         kmax (0-d i64 tensor), off_over (0-d bool tensor)) — the table
-        is complete only if kmax <= kpad and not off_over (an image
-        offset beyond the int8 range).  Empty slots self-point at the row.
-        Nothing here synchronizes with the host.
+         kmax (0-d i64 tensor), off_over (0-d bool tensor)), each table
+        with the leading R axis when given one — the tables are complete
+        only if kmax <= kpad and not off_over (an image offset beyond the
+        int8 range).  Empty slots self-point at the row.  Nothing here
+        synchronizes with the host.
     """
-    N = positions.shape[0]
+    batched = positions.dim() == 3
+    if not batched:
+        positions, atom_mask = positions[None], atom_mask[None]
+    R, N = positions.shape[:2]
     dev = positions.device
-    dtype = positions.dtype
-    frac = positions @ inv3(cell)  # (N, 3), possibly unwrapped
+    frac = positions @ inv3(cell)  # (R, N, 3), possibly unwrapped
     cut2 = cutoff**2  # a float or a 0-d tensor: no host-to-card copy
     rows = torch.arange(N, dtype=torch.int32, device=dev)
     idx_out, off_out, msk_out, counts, overs = [], [], [], [], []
     for lo in range(0, N, block):
-        fi = frac[lo:lo + block]
+        fi = frac[:, lo:lo + block]
         ri = rows[lo:lo + block]
-        mi = atom_mask[lo:lo + block]
-        B = fi.shape[0]
-        g = frac[None, :, :] - fi[:, None, :]  # (B, N, 3) f_j - f_i
+        mi = atom_mask[:, lo:lo + block]
+        B = fi.shape[1]
+        g = frac[:, None, :, :] - fi[:, :, None, :]  # (R, B, N, 3) f_j - f_i
         off = -torch.round(g)  # round half to even, as rint
         rvec = (g + off) @ cell
-        d2 = (rvec * rvec).sum(-1)  # (B, N)
+        d2 = (rvec * rvec).sum(-1)  # (R, B, N)
         self_pair = (rows[None, :] == ri[:, None]) & (off == 0).all(-1)
-        valid = (d2 <= cut2) & ~self_pair & atom_mask[None, :] & mi[:, None]
-        slot = torch.cumsum(valid, dim=1) - 1  # (B, N)
-        counts.append(valid.sum(dim=1))
+        valid = ((d2 <= cut2) & ~self_pair & atom_mask[:, None, :]
+                 & mi[:, :, None])
+        slot = torch.cumsum(valid, dim=2) - 1  # (R, B, N)
+        counts.append(valid.sum(dim=2))
         overs.append(((off.abs() > 127.0).any(-1) & valid).any())
         slot_c = torch.where(valid & (slot < kpad), slot,
                              torch.full_like(slot, kpad))
-        j = rows[None, :].expand(B, N)
-        idx_b = torch.zeros((B, kpad + 1), dtype=torch.int32, device=dev)
-        idx_b.scatter_(1, slot_c, j)
-        msk_b = torch.zeros((B, kpad + 1), dtype=torch.bool, device=dev)
-        msk_b.scatter_(1, slot_c, valid)
-        off_b = torch.zeros((B, kpad + 1, 3), dtype=torch.int8, device=dev)
-        off_b.scatter_(1, slot_c[..., None].expand(B, N, 3),
+        j = rows.expand(R, B, N)
+        idx_b = torch.zeros((R, B, kpad + 1), dtype=torch.int32, device=dev)
+        idx_b.scatter_(2, slot_c, j)
+        msk_b = torch.zeros((R, B, kpad + 1), dtype=torch.bool, device=dev)
+        msk_b.scatter_(2, slot_c, valid)
+        off_b = torch.zeros((R, B, kpad + 1, 3), dtype=torch.int8, device=dev)
+        off_b.scatter_(2, slot_c[..., None].expand(R, B, N, 3),
                        off.clamp(-128, 127).to(torch.int8))
-        idx_b, msk_b, off_b = idx_b[:, :kpad], msk_b[:, :kpad], off_b[:, :kpad]
+        idx_b = idx_b[:, :, :kpad]
+        msk_b = msk_b[:, :, :kpad]
+        off_b = off_b[:, :, :kpad]
         idx_out.append(torch.where(msk_b, idx_b, ri[:, None]))
         off_out.append(torch.where(msk_b[..., None], off_b,
                                    torch.zeros_like(off_b)))
         msk_out.append(msk_b)
-    kmax = torch.cat(counts).max()
-    return (torch.cat(idx_out), torch.cat(off_out), torch.cat(msk_out), kmax,
+    idx, off, mask = (torch.cat(t, dim=1) for t in (idx_out, off_out, msk_out))
+    if not batched:
+        idx, off, mask = idx[0], off[0], mask[0]
+    return (idx, off, mask, torch.cat(counts, dim=1).max(),
             torch.stack(overs).any())
 
 

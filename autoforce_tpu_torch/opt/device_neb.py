@@ -28,40 +28,15 @@ to float rounding while no FIRE branch sits on an fp knife edge.
 
 from __future__ import annotations
 
-import math
-
 import numpy as np
 import torch
 
-from ..engine import ConfigArrays, _total_cov, device_fetch
-from ..kernels import covloss_beta
-from ..md.device_md import (VS_UNSEEN, _committee_e, _floor_max, _go,
+from ..engine import device_fetch
+from ..md.device_md import (VS_UNSEEN, _go, _sgpr_forces,
                             check_plain_surface, committee_models,
-                            committee_stack, drive, skin_table)
+                            committee_stack, drive, skin_table,
+                            stack_images)
 from .device_fire import _fire_update
-
-
-def stack_images(cfgs):
-    """One configuration whose rows are the rows of ``cfgs`` (same
-    bucket): neighbor indices and reverse slots are offset by each
-    image's row block, so the images stay independent, and each row
-    carries its image's cell ((N, 3, 3), engine._env_rvec)."""
-    n, k = cfgs[0].nbr_idx.shape
-    rev = None
-    if all(c.nbr_rev is not None for c in cfgs):
-        rev = torch.cat([torch.where(c.nbr_rev >= 0, c.nbr_rev + r * n * k,
-                                     c.nbr_rev) for r, c in enumerate(cfgs)])
-    return ConfigArrays(
-        positions=torch.cat([c.positions for c in cfgs]),
-        cell=torch.cat([c.cell.expand(n, 3, 3) for c in cfgs]),
-        numbers=torch.cat([c.numbers for c in cfgs]),
-        atom_mask=torch.cat([c.atom_mask for c in cfgs]),
-        nbr_idx=torch.cat([c.nbr_idx + r * n for r, c in enumerate(cfgs)]),
-        nbr_off=torch.cat([c.nbr_off for c in cfgs]),
-        nbr_sidx=torch.cat([c.nbr_sidx for c in cfgs]),
-        nbr_mask=torch.cat([c.nbr_mask for c in cfgs]),
-        nbr_rev=rev,
-    )
 
 
 def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
@@ -73,35 +48,10 @@ def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
     each image's energy is its weighted committee energy and its beta
     the committee floor."""
     R, N = pos.shape[:2]
-    if mean_e is not None:
-        with torch.enable_grad():
-            p = pos.detach().reshape(R * N, 3).requires_grad_(True)
-            e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
-                                   vscale_atom, mean_e, params, exponent, ks,
-                                   nimg=R)
-            (g,) = torch.autograd.grad(e.sum(), p)
-        f = (-g * cfg.atom_mask[:, None]).reshape(R, N, 3)
-        return e.detach(), f, _floor_max(bmax, check_beta)
-    with torch.enable_grad():
-        p = pos.detach().reshape(R * N, 3).requires_grad_(True)
-        cov, lone, alpha = _total_cov(
-            p, cfg.cell, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True, ks=ks,
-            pair_d=model.pair_d, pair_mask=model.pair_mask,
-        )
-        cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
-        e = (cov @ model.mu).reshape(R, N).sum(1)
-        (g,) = torch.autograd.grad(e.sum(), p)
-    f = (-g * cfg.atom_mask[:, None]).reshape(R, N, 3)
-    if check_beta:
-        beta = covloss_beta(model.choli, cov.detach(), vscale_atom,
-                            model.m_mask, alpha=alpha.detach())
-        beta = torch.where(cfg.atom_mask, beta,
-                           torch.full_like(beta, -math.inf))
-        bmax = beta.reshape(R, N).max(1).values
-    else:
-        bmax = torch.zeros(R, dtype=pos.dtype, device=pos.device)
-    return e.detach(), f, bmax
+    e, f, bmax = _sgpr_forces(pos.reshape(R * N, 3), cfg, model, radii,
+                              vscale_atom, params, exponent, check_beta, ks,
+                              mean_e, nimg=R)
+    return e, f.reshape(R, N, 3), bmax
 
 
 def neb_chunk(

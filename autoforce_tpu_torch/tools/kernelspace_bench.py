@@ -96,10 +96,21 @@ def learn(engine, wall_cap=60.0, step_cap=400, record_cap=None,
         if on_start is not None:
             on_start()
         t0 = time.time()
+        update = calc.update
+
+        def capped_update(*a, **k):
+            # past the wall cap no update starts: the run of steps in
+            # flight then ends within its remaining steps, and the cap
+            # overshoots by at most the update in flight (the chemical +
+            # pair growth's updates grow to minutes each as its M nears
+            # singular, ROADMAP 3.1)
+            if time.time() - t0 > wall_cap:
+                return 0, 0
+            return update(*a, **k)
+
+        calc.update = capped_update
         steps, exit_reason = 0, "step_cap"
         while steps < step_cap:
-            # fine-grained: an update with HPO and a covariance rebuild
-            # takes seconds, so a cap overshoots little
             dyn.run(10)
             steps += 10
             if record_cap is not None and calc.size[0] >= record_cap:
@@ -109,6 +120,7 @@ def learn(engine, wall_cap=60.0, step_cap=400, record_cap=None,
                 exit_reason = "wall_cap"
                 break
         wall = time.time() - t0
+        calc.update = update
         ref = s.copy()
         ref.calc = oracle
         res = calc.calculate(s)

@@ -171,24 +171,31 @@ def bound(nbytes, ops, dtype_name):
 # ----------------------------------------------------------------- timers
 
 
-def device_ms(fn, n, match=None):
+def device_ms(fn, n, match=None, warmup=3, elapsed=False):
     """Device time per call of ``fn`` (ms): the summed durations of the
     CUDA kernels it launches (those whose name holds ``match``), traced
-    with torch.profiler over ``n`` warmed calls; None when the profiler
-    records no device kernel."""
+    with torch.profiler over ``n`` calls after ``warmup`` calls; None when
+    the profiler records no device kernel.  With ``elapsed``, also the
+    elapsed time per call of the traced window (CUDA events), for calls
+    long enough that the tracing's own cost does not count."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
         for _ in range(n):
             fn()
+        b.record()
         torch.cuda.synchronize()
     us = [ev.time_range.elapsed_us() for ev in prof.events()
           if ev.device_type == torch.autograd.DeviceType.CUDA
           and (match is None or match in ev.name)]
-    return sum(us) / n / 1e3 if us else None
+    ms = sum(us) / n / 1e3 if us else None
+    return (ms, a.elapsed_time(b) / n) if elapsed else ms
 
 
 def cuda_ms(fn, n):

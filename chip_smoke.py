@@ -108,24 +108,56 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    launch of each kernel per band evaluation, the stacked band against
    each image alone as in phase 7.  (g) Both kernels against their plain
    versions at the committee band's stacked shape, timed in phase 6.
+10. Replica ensembles, metadynamics, multi-task learning and the
+   parametric potential (run right after phase 9; the workloads of
+   ``autoforce_tpu_torch.tools.ensemble_bench``, caps in ``ENS_CAPS``, a
+   budget of 100 s).  (a) ``bench.py``'s ``measure_replicas``: 16 copies of
+   the bench snapshot under ``ReplicaMD`` (Langevin 300 K, 2 fs, friction
+   0.02, chunk 400), 150 + 300 ensemble steps, the walkers stacked as one
+   configuration of 16,128 rows: one launch of each kernel per ensemble
+   step, the rates beside phase 4's single walker, and the stacked float32
+   rows against each walker alone in float64 plain (``BAND_E_TOL`` /
+   ``BAND_F_TOL``).  (b) ``ActiveMeta(scale=1e-2)`` fused into ``DeviceMD``
+   on the bench model (100 + 200 steps, one launch of each kernel per
+   step, the rate); the bias alone in float32 against
+   ``engine.meta_covloss_fn`` in float64 plain, on phase 5's learned model
+   and its crystal rattled 0.15 A (the bench model's beta sits at its clip
+   floor everywhere); the committee's fused floor bias on phase 9's
+   committee against the host formula (one evaluation, one launch of
+   each kernel); 20 host Langevin steps each with ``SoapMeta`` and
+   ``Meta(Posvar)``.  (c) ``MultiTaskCalculator`` with two Lennard-Jones
+   tasks at weights (0.7, 0.3), learning under ``DeviceMD`` (600 K) on a
+   256-atom fcc Cu cell for 30 s, then 200 static-weight steps on the bench
+   snapshot and 100 more after ``set_weights([0, 1])``: a sample taken,
+   one launch of each kernel per step, float32 device against float64
+   host plain after each weight change (2e-4 eV/atom, 1e-2 eV/A), the two
+   weightings' forces different.  (d) ``ParametricCalculator`` with LJ
+   terms on the card against the oracle of the same form (``PARAM_TOL``).
+   Then both kernels against their plain versions at the replica rows
+   and the multi-task growth rows, timed in phase 6.
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
    band's stacked rows, the learning path's staging and kernel_block
-   rows, the Jacobian route's one-hot rows and the committee band's
-   rows); a profiler breakdown of the MD step.
+   rows, the Jacobian route's one-hot rows, the committee band's rows,
+   the replica ensemble's stacked rows and the multi-task growth rows;
+   each plain version timed once, three calls in one traced window); a
+   profiler breakdown of the MD step.
 
 Each phase logs its wall time; the whole script is held to 1000 s on an
 H100 (its time limit is 1200 s).  Before the last lines come JSON objects
 with each phase's numbers (``drivers``, ``otf``, ``kernel_space``,
-``committee``); the line before the card's is one JSON object with every
-kernel's numbers (launches split by path: serving MD, OTF learning, each
-structure driver, each kernel-space path and each committee path); the
-last line is ``{"ok": true, "device": {...}}``.
+``committee``, ``replicas_meta_multitask_parametric``); the line before
+the card's is one JSON object with every kernel's numbers (launches split
+by path: serving MD, OTF learning, each structure driver, each
+kernel-space path, each committee path, the replica ensemble, the fused
+and host metadynamics, multi-task growth and serving); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -184,6 +216,15 @@ OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
 BCM_CAPS = dict(max_inducing=256, max_data=8, grow_wall_cap=45.0,
                 md_steps=200, npt_steps=100, fire_steps=100, neb_steps=100,
                 neb_end_steps=150)
+# phase 10: the replica ensemble of bench.py's measure_replicas (R = 16,
+# chunk 400, 150 warm-up + 300 timed ensemble steps), 200 ActiveMeta
+# steps after a first chunk of 100, 20 host steps of each host bias, the
+# multi-task growth's wall cap (checked after every chunk of 20 steps) and
+# its served steps before and after the weight switch; the phase's budget
+# is 100 s
+ENS_CAPS = dict(replicas=16, rep_chunk=400, rep_warmup=150, rep_steps=300,
+                meta_scale=1e-2, meta_steps=200, host_meta_steps=20,
+                mt_wall_cap=30.0, mt_steps=200, mt_steps_switched=100)
 
 
 def log(*a):
@@ -1391,7 +1432,306 @@ def phase_committee(folder, card):
                           band_f_rel_err=df / f_scale, rows=rows[0].shape[0])
     numbers["wall_s"] = time.time() - t_phase
     log(f"phase 9 (a-f) took {numbers['wall_s']:.1f} s (budget 150 s)")
-    return paths, numbers, (calc.engine.params, rows)
+    return paths, numbers, (calc.engine.params, rows), calc
+
+
+def phase_ensembles(committee, committee_system, learned, single_rate, card):
+    """10. Replica ensembles, metadynamics, multi-task learning and the
+    parametric potential (``ENS_CAPS``; the workloads of
+    ``autoforce_tpu_torch.tools.ensemble_bench``): (a) R = 16 walkers of
+    the bench snapshot under ``ReplicaMD``; (b) ``ActiveMeta`` fused into
+    ``DeviceMD``, the committee's floor bias on phase 9's committee, and
+    ``SoapMeta`` / ``Meta(Posvar)`` under the host Langevin driver; (c) a
+    ``MultiTaskCalculator`` learning two Lennard-Jones tasks, then serving
+    static weights and a weight switch; (d) ``ParametricCalculator``.
+    ``committee_system()`` makes the configuration of the committee and
+    of ``learned``, phase 5's model folder, which the fused bias is checked
+    on (the bench model's covloss c exceeds 1 on every environment, its M
+    being singular to rounding, so its beta sits at the clip floor).
+    Every check prints its name, value and bound before it asserts.
+    Returns ({path: launches}, numbers, the new timing shapes)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.meta import ActiveMeta, Meta, Posvar, SoapMeta
+    from autoforce_tpu_torch.md import Langevin
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md import replica_md as rmd
+    from autoforce_tpu_torch.system import maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import ensemble_bench as eb
+    from autoforce_tpu_torch.tools import soap_bench as sb
+
+    t_phase = time.time()
+    fs = units.fs
+    caps = ENS_CAPS
+    paths, numbers = {}, {}
+
+    def check(name, value, bound, ok):
+        log(f"check {name}: {value} (bound {bound})")
+        if not ok:
+            raise AssertionError(f"phase 10: {name} = {value} misses {bound}")
+
+    def close(name):
+        got = db.launches()
+        check(f"{name} launched both kernels", got, "each > 0",
+              all(c > 0 for c in got.values()))
+        paths[name] = got
+        return got
+
+    def per_step(name, ev, rec, steps):
+        check(f"{name}: a chunk ran under the sync check",
+              rec["sync_checked"], "True", rec["sync_checked"])
+        check(f"{name} steps", rec["steps"], f"== {steps}",
+              rec["steps"] == steps)
+        check(f"{name} evaluations that did not launch each kernel once",
+              f"{ev['off']} of {ev['calls']}", "0",
+              ev["off"] == 0 and ev["calls"] >= steps)
+
+    def busy(run, steps, rate):
+        kps, us = db.profile_window(run, steps)
+        if kps is None:
+            return dict(kernels_per_step=None, device_us_per_step=None,
+                        busy_share=None)
+        return dict(kernels_per_step=kps, device_us_per_step=us,
+                    busy_share=us / (1e6 / rate))
+
+    # (a) the replica ensemble: one launch of each kernel per ensemble step
+    R = caps["replicas"]
+    calc = db.serving_calc()
+    dyn = rmd.ReplicaMD(eb.replica_systems(R), calc, dt=2 * fs,
+                        temperature_K=eb.TEMPERATURE_K, friction=0.02,
+                        chunk=caps["rep_chunk"], check_beta=False)
+    steps = caps["rep_warmup"] + caps["rep_steps"]
+    db.reset_launches()
+    reads = [0]
+    host_read = dmd.host_read
+
+    @contextlib.contextmanager
+    def counted_read():  # the in-loop rebuilds' breach reads
+        reads[0] += 1
+        with host_read():
+            yield
+
+    with db.evaluation_probe(dmd, "_sgpr_forces") as ev, \
+            db.chunk_probe(rmd, "md_chunk", 5) as rec:
+        dyn.run(caps["rep_warmup"])  # its first chunk sync-checked
+        torch.cuda.synchronize()
+        dmd.host_read = counted_read
+        try:
+            t0 = time.time()
+            dyn.run(caps["rep_steps"])
+            torch.cuda.synchronize()
+            rate = caps["rep_steps"] / (time.time() - t0)
+        finally:
+            dmd.host_read = host_read
+    got = close("replicas")
+    per_step("replica ensemble", ev, rec, steps)
+    prof = busy(lambda: dyn.run(20), 20, rate)
+    finite = all(np.isfinite(w.positions).all() for w in dyn.systems)
+    check("replica positions finite", finite, "True", finite)
+    de, e_scale, df, f_scale, rep_rows = eb.replica_rel_err(dyn)
+    log(f"replica ensemble [{card}]: {R} walkers x {len(dyn.systems[0])} atoms "
+        f"= {rep_rows[0].shape[0]} stacked rows, K = {rep_rows[0].shape[1]}; "
+        f"{rate:.2f} ensemble steps/s, {R * rate:.1f} walker-steps/s over "
+        f"{caps['rep_steps']} steps (one walker alone, phase 4: "
+        f"{single_rate:.1f} steps/s); {prof['kernels_per_step']} device "
+        f"kernels and {prof['device_us_per_step']} us of device time per "
+        f"ensemble step, busy {prof['busy_share']}; {reads[0]} breach reads "
+        f"(in-loop rebuilds) in the timed steps; launches {got}")
+    check("replica energies, float32 stacked vs float64 per walker",
+          f"{de / e_scale:.3e} of the largest |E| {e_scale:.4g}",
+          f"<= {db.BAND_E_TOL:g}", de <= db.BAND_E_TOL * e_scale)
+    check("replica forces, float32 stacked vs float64 per walker",
+          f"{df / f_scale:.3e} of the largest |f| {f_scale:.4g}",
+          f"<= {db.BAND_F_TOL:g}", df <= db.BAND_F_TOL * f_scale)
+    numbers["replicas"] = dict(
+        walkers=R, rows=rep_rows[0].shape[0], ensemble_steps_per_s=rate,
+        walker_steps_per_s=R * rate, single_walker_steps_per_s=single_rate,
+        evaluations=ev["calls"], chunks=rec["calls"], breach_reads=reads[0],
+        e_rel_err=de / e_scale, f_rel_err=df / f_scale, **prof)
+    rep_params = dyn.calc.engine.params
+    del dyn
+
+    # (b) ActiveMeta fused into DeviceMD
+    scale = caps["meta_scale"]
+    calc = db.serving_calc()
+    calc.meta = ActiveMeta(scale=scale)
+    s = sb.bench_system()
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, eb.TEMPERATURE_K, seed=3)
+    md = dmd.DeviceMD(s, calc, dt=2 * fs, temperature_K=eb.TEMPERATURE_K,
+                      friction=0.02, chunk=100, check_beta=False)
+    steps = 100 + caps["meta_steps"]
+    db.reset_launches()
+    with db.evaluation_probe(dmd, "_sgpr_forces") as ev, \
+            db.chunk_probe(dmd, "md_chunk", 5) as rec:
+        md.run(100)  # its first chunk sync-checked
+        torch.cuda.synchronize()
+        t0 = time.time()
+        md.run(caps["meta_steps"])
+        torch.cuda.synchronize()
+        rate = caps["meta_steps"] / (time.time() - t0)
+    got = close("meta_md")
+    per_step("ActiveMeta DeviceMD", ev, rec, steps)
+    finite = bool(np.isfinite(s.positions).all())
+    check("ActiveMeta positions finite", finite, "True", finite)
+    prof = busy(lambda: md.run(20), 20, rate)
+    log(f"ActiveMeta DeviceMD [{card}]: {rate:.2f} steps/s over "
+        f"{caps['meta_steps']} steps (without the bias, phase 4: "
+        f"{single_rate:.1f}); {prof['kernels_per_step']} device kernels and "
+        f"{prof['device_us_per_step']} us of device time per step, busy "
+        f"{prof['busy_share']}; launches {got}")
+    # the bias alone, with phase 5's learned model on its crystal rattled
+    # 0.15 A (tests/test_bcm_meta.py), so that beta sits well above its
+    # clip floor
+    s2 = committee_system()
+    s2.rattle(0.15, seed=33)
+    lcalc = ActiveCalculator(covariance=learned, calculator=None, skin=SKIN,
+                             logfile=None, pckl=None, tape=None,
+                             dtype=torch.float32)
+    lcalc.meta = ActiveMeta(scale=scale)
+    m = eb.meta_rel_err(lcalc, s2, scale)
+    log(f"ActiveMeta bias on the rattled crystal: float32 {m['e32']:.8g} eV, "
+        f"float64 plain {m['e64']:.8g} eV; beta min {m['beta_min']:.4g}, "
+        f"median {m['beta_median']:.4g}; largest bias force "
+        f"{m['f_scale']:.4g} eV/A")
+    check("beta of the bias check's configuration well above the clip "
+          "floor (1e-6)", f"median {m['beta_median']:.4g}", ">= 1e-3",
+          m["beta_median"] >= 1e-3)
+    check("ActiveMeta bias energy, float32 fused vs float64 plain",
+          f"{m['e_err']:.3e} eV", f"<= {m['e_tol']:.3e} eV (scale sum "
+          "sqrt(vs) min(1e-5 / beta, sqrt(2e-5)))", m["e_err"] <= m["e_tol"])
+    check("ActiveMeta bias forces, float32 fused vs float64 plain",
+          f"{m['f_err'] / m['f_scale']:.3e} of the largest bias force",
+          f"<= {eb.META_F_TOL:g}", m["f_err"] <= eb.META_F_TOL * m["f_scale"])
+    numbers["meta_md"] = dict(steps_per_s=rate, plain_steps_per_s=single_rate,
+                              evaluations=ev["calls"], **prof, **m)
+    del md
+    # the committee's floor bias: one evaluation against the host formula
+    s3 = committee_system()
+    s3.rattle(0.15, seed=33)
+    e_dev, e_host, got, nat = eb.committee_floor_err(committee, s3, scale)
+    paths["bcm_meta"] = got
+    tol = 1e-3 * abs(e_host) + 2e-5 * nat / 32
+    check("committee floor bias launches", got, "one of each",
+          got == {"soap_coeff_fwd": 1, "soap_coeff_bwd": 1})
+    check("committee floor bias, fused (float32) vs host formula",
+          f"{e_dev:.8g} vs {e_host:.8g} eV", f"within {tol:.3e} eV "
+          "(tests/test_bcm_meta.py's 1e-3 relative, 2e-5 eV per 32 atoms)",
+          abs(e_dev - e_host) <= tol and e_host < 0)
+    numbers["bcm_meta"] = dict(fused=e_dev, host=e_host,
+                               models=len(dmd.committee_models(committee)))
+    # SoapMeta and Meta(Posvar) under the host Langevin driver
+    for name, bias in (("soap_meta", SoapMeta(scale=scale)),
+                       ("posvar_meta", Meta(Posvar(0), sigma=0.2, w=0.05,
+                                            hist=None))):
+        calc.meta = bias
+        h = sb.bench_system()
+        h.calc = calc
+        maxwell_boltzmann_velocities(h, eb.TEMPERATURE_K, seed=5)
+        drv = Langevin(h, 2 * fs, eb.TEMPERATURE_K, friction=0.02, seed=6)
+        drv.attach(bias.update)
+        db.reset_launches()
+        t0 = time.time()
+        drv.run(caps["host_meta_steps"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        got = close(name)
+        ok = bool(np.isfinite(calc.results["energy"])
+                  and np.isfinite(calc.results["forces"]).all()
+                  and np.isfinite(h.positions).all())
+        log(f"{name}: {caps['host_meta_steps']} host Langevin steps in "
+            f"{wall:.2f} s [{card}], last energy {calc.results['energy']:.6g} "
+            f"eV; launches {got}")
+        check(f"{name} energies, forces and positions finite", ok, "True", ok)
+        numbers[name] = dict(steps=caps["host_meta_steps"], wall_s=wall)
+    calc.meta = None
+
+    # (c) multi-task learning, then static weights and a weight switch
+    mt = eb.multitask_calc(logfile=os.path.join(os.getcwd(), "mt_active.log"))
+    g = eb.multitask_system()
+    db.reset_launches()
+    with db.chunk_probe(dmd, "md_chunk", 5) as rec:
+        grow = eb.multitask_learn(mt, g, wall_cap=caps["mt_wall_cap"])
+    close("mt_grow")
+    mt_rows = sb.kernel_inputs(mt.engine, g, kpad=mt.cfg.nbr_idx.shape[1],
+                               cutoff=mt.engine.params.rc + SKIN)
+    log(f"multi-task growth [{card}]: {grow['steps']} steps in "
+        f"{grow['wall_s']:.1f} s, (ndata, m) {grow['seed_size']} at the seed, "
+        f"{grow['size']} at the end")
+    check("multi-task growth: a chunk ran under the sync check",
+          rec["sync_checked"], "True", rec["sync_checked"])
+    check("multi-task samples taken after the seed",
+          f"{grow['seed_size']} -> {grow['size']}", "grew",
+          grow["size"] != grow["seed_size"])
+    ok = grow["positions_finite"] and grow["forces_finite"]
+    check("multi-task growth: forces and positions finite", ok, "True", ok)
+    s4 = sb.bench_system()
+    s4.calc = mt
+    mt._calc = None
+    maxwell_boltzmann_velocities(s4, eb.TEMPERATURE_K, seed=7)
+    md = dmd.DeviceMD(s4, mt, dt=2 * fs, temperature_K=eb.TEMPERATURE_K,
+                      friction=0.02, chunk=100, check_beta=False)
+    nat = len(s4)
+    mt_numbers = dict(grow=grow)
+    served = dict.fromkeys(db.launches(), 0)
+    forces = []
+    for weights, steps in (((0.7, 0.3), caps["mt_steps"]),
+                           ((0.0, 1.0), caps["mt_steps_switched"])):
+        mt.set_weights(list(weights))
+        db.reset_launches()
+        with db.evaluation_probe(dmd, "_sgpr_forces") as ev, \
+                db.chunk_probe(dmd, "md_chunk", 5) as rec:
+            t0 = time.time()
+            md.run(steps)
+            torch.cuda.synchronize()
+            rate = steps / (time.time() - t0)
+        for k, c in db.launches().items():
+            served[k] += c
+        per_step(f"multi-task MD at weights {weights}", ev, rec, steps)
+        fixed = sb.bench_system()
+        fixed.rattle(0.02, seed=8)
+        e_err, f_mae, f_max, task_e, f_dev = eb.multitask_rel_err(mt, fixed)
+        forces.append(f_dev)
+        log(f"multi-task MD at weights {weights} [{card}]: {rate:.2f} steps/s "
+            f"over {steps} steps (first call included); task energies "
+            f"{task_e.tolist()}")
+        check(f"multi-task energy at {weights}, float32 device vs float64 "
+              "host plain", f"{e_err / nat:.3e} eV/atom", "< 2e-4",
+              e_err / nat < 2e-4)
+        check(f"multi-task force MAE at {weights}, float32 device vs "
+              "float64 host plain", f"{f_mae:.3e} eV/A", "< 1e-2",
+              f_mae < 1e-2)
+        ok = bool(np.isfinite(task_e).all())
+        check(f"multi-task task energies finite at {weights}", ok, "True", ok)
+        mt_numbers[str(weights)] = dict(steps_per_s=rate,
+                                        e_err_per_atom=e_err / nat,
+                                        f_mae=f_mae, f_err_max=f_max,
+                                        task_energies=task_e.tolist())
+    check("mt_md launched both kernels", served, "each > 0",
+          all(c > 0 for c in served.values()))
+    paths["mt_md"] = served
+    dforce = float(np.abs(forces[0] - forces[1]).max())
+    check("multi-task forces under the two weightings differ (the new mu "
+          "reached the card)", f"{dforce:.4g} eV/A", "> 1e-3", dforce > 1e-3)
+    numbers["multitask"] = mt_numbers
+
+    # (d) the parametric potential against the oracle of its form
+    de, e_abs, df, f_abs = eb.parametric_err(sb.bench_system())
+    check("parametric LJ energy on the card vs the oracle",
+          f"{de / e_abs:.3e} of |E| {e_abs:.6g} eV", f"<= {eb.PARAM_TOL:g}",
+          de <= eb.PARAM_TOL * e_abs)
+    check("parametric LJ forces on the card vs the oracle",
+          f"{df / f_abs:.3e} of the largest |f| {f_abs:.4g} eV/A",
+          f"<= {eb.PARAM_TOL:g}", df <= eb.PARAM_TOL * f_abs)
+    numbers["parametric"] = dict(e_rel_err=de / e_abs, f_rel_err=df / f_abs)
+    numbers["wall_s"] = time.time() - t_phase
+    log(f"phase 10 (a-d) took {numbers['wall_s']:.1f} s (budget 100 s)")
+    return paths, numbers, {"replica_rows": (rep_params, rep_rows),
+                            "mt_growth": (mt.engine.params, mt_rows)}
 
 
 def phase_profile(dyn, ms_per_step, card):
@@ -1477,9 +1817,11 @@ def phase_timings(cases, worst, launches, card):
             # the elapsed time per call (CUDA events over back-to-back calls)
             # is bounded by the host when the device time is shorter
             ms = sb.device_ms(kern, 200, kname)
-            plain_ms = sb.device_ms(plain, 10)
             call_ms = sb.cuda_ms(kern, 200)
-            plain_call_ms = sb.cuda_ms(plain, 10)
+            # the plain version once: its device and elapsed times from one
+            # traced window of three calls after one warm-up call
+            plain_ms, plain_call_ms = sb.device_ms(plain, 3, warmup=1,
+                                                   elapsed=True)
             if ms is None or plain_ms is None:
                 log("profiler saw no device kernels: times are elapsed per call")
                 ms, plain_ms = call_ms, plain_call_ms
@@ -1610,15 +1952,28 @@ def run_phases(torch):
     ks_launches, ks_numbers = phase_kernel_space(card)
     log(f"phase 8 took {time.time() - t8:.1f} s")
     clock[0] = time.time()
-    bcm_launches, bcm_numbers, bcm_band = phase_committee(bcm_dir, card)
+    bcm_launches, bcm_numbers, bcm_band, bcm_calc = phase_committee(bcm_dir,
+                                                                     card)
     # (g) both kernels at the committee band's stacked shape
     worst.update(phase_kernels({"bcm_neb_band": bcm_band + (both,)}))
     timing["bcm_neb_band"] = bcm_band
     took("9 with its kernel checks")
+    from autoforce_tpu_torch.tools.otf_bench import make_lgps_system
+
+    ens_launches, ens_numbers, ens_shapes = phase_ensembles(
+        bcm_calc, make_lgps_system, os.path.join(bcm_dir, "bcm_1.pckl"),
+        sorted(rates)[1], card)
+    del bcm_calc
+    # both kernels at the replica ensemble's stacked rows and the
+    # multi-task growth's rows
+    worst.update(phase_kernels({k: v + (both,) for k, v in ens_shapes.items()}))
+    timing.update(ens_shapes)
+    took("10 with its kernel checks")
     rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
                                          **driver_launches,
                                          "kb_jac": jac_launches,
-                                         **ks_launches, **bcm_launches}, card)
+                                         **ks_launches, **bcm_launches,
+                                         **ens_launches}, card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
     took(6)
@@ -1630,6 +1985,7 @@ def run_phases(torch):
         f"Jacobian route errors {jac_errs}, timings {json.dumps(jac_times)}")
     print(json.dumps({"kernel_space": ks_numbers}))
     print(json.dumps({"committee": bcm_numbers}))
+    print(json.dumps({"replicas_meta_multitask_parametric": ens_numbers}))
     log(f"chip_smoke took {time.time() - t_all:.1f} s after the card check "
         f"(ceiling 1000 s)")
     print(json.dumps({"kernels": rows}))

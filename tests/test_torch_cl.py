@@ -1,6 +1,7 @@
 """The port's command line (``autoforce_tpu_torch.cl``) against the JAX
 package's on the same ARGS file (CPU, float64): ``cl.md`` with the device
-integrator (Nose-Hoover NVT, and MTK NPT with ``bulk_modulus``),
+integrator (Nose-Hoover NVT, a two-walker ensemble with ``replicas = 2``,
+and MTK NPT with ``bulk_modulus``),
 ``cl.relax`` with ``algo='DEVICE'`` and ``cell=True``, and ``cl.neb`` with
 ``device=True``, each in a temporary directory with the EMT oracle named
 in ARGS and the trained 32-atom Cu model of tests/test_torch_npt.py.  The
@@ -170,11 +171,28 @@ def test_cl_refuses_what_is_not_ported(tmp_path, monkeypatch, line, what):
         cl.refresh()
 
 
-def test_cl_md_refuses_replicas(trained_folder, tmp_path,  # noqa: F811
-                                monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    write_args(str(tmp_path), **frozen_args(trained_folder))
-    cl.refresh()
-    with pytest.raises(NotImplementedError, match="replica"):
-        cl_md.md(cu_box("port"), dynamics="DEVICE", tem=300.0, dt=2.0,
-                 picos=-10, replicas=2, eps_pos=0.0)
+def test_cl_md_replicas_matches_jax(trained_folder, tmp_path,  # noqa: F811
+                                   monkeypatch):
+    """``replicas = 2``: a two-walker ensemble (walker 1 a rattled,
+    re-thermalized copy), walker 0's frames on the trajectory."""
+    monkeypatch.setattr(jax_cl_md, "maxwell_boltzmann_velocities",
+                        seeded_mb(jax_mb))
+    monkeypatch.setattr(cl_md, "maxwell_boltzmann_velocities",
+                        seeded_mb(maxwell_boltzmann_velocities))
+    args = frozen_args(trained_folder, thermostat="nhc", eps_pos=0.0,
+                       replicas=2)
+
+    def fn(name):
+        mod = jax_cl_md if name == "jax" else cl_md
+        kwargs = (jax_cl if name == "jax" else cl).get_default_args(mod.md)
+        (jax_cl if name == "jax" else cl).update_args(kwargs)
+        assert kwargs["replicas"] == 2
+        kwargs.update(dynamics="DEVICE", tem=300.0, dt=2.0, picos=-50,
+                      loginterval=25, trajectory="md.extxyz")
+        mod.md(cu_box(name), **kwargs)
+        return read_xyz("md.extxyz")
+
+    out = run_both(tmp_path, monkeypatch, args, fn)
+    assert_frames_equal(out["jax"], out["port"])
+    assert not np.allclose(out["port"][-1].positions,
+                           out["port"][0].positions)

@@ -554,3 +554,75 @@ def test_neb_band_with_a_cell_per_image_on_card(cuda):
     de, e_scale, df, f_scale, _ = db.band_rel_err(band)
     assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
     assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)
+
+
+def test_replica_ensemble_step_on_card(cuda):
+    """Three walkers stacked as one configuration: one launch of each
+    kernel per ensemble evaluation, and the stacked float32 rows within
+    BAND_E_TOL / BAND_F_TOL of each walker alone in float64 plain."""
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md.replica_md import ReplicaMD
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import ensemble_bench as eb
+
+    calc = db.serving_calc()
+    walkers = []
+    for r in range(3):
+        s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+        s.rattle(0.05, seed=10 + r)
+        maxwell_boltzmann_velocities(s, 300, seed=20 + r)
+        walkers.append(s)
+    dyn = ReplicaMD(walkers, calc, 2 * units.fs, temperature_K=300,
+                    friction=0.02, chunk=10, check_beta=False)
+    with db.evaluation_probe(dmd, "_sgpr_forces") as ev:
+        dyn.run(20)
+    assert dyn.nsteps == 20 and ev["calls"] >= 20 and ev["off"] == 0, ev
+    de, e_scale, df, f_scale, rows = eb.replica_rel_err(dyn)
+    assert rows[0].shape[0] == 3 * 256
+    assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
+    assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)
+
+
+def test_fused_meta_step_on_card(cuda, tmp_path, monkeypatch):
+    """ActiveMeta fused into DeviceMD on a model learned on the card: one
+    launch of each kernel per step, and the bias alone in float32 through
+    the kernels against meta_covloss_fn in float64 plain
+    (ensemble_bench.meta_rel_err's bounds)."""
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.emt import EMT
+    from autoforce_tpu_torch.calculator.meta import ActiveMeta
+    from autoforce_tpu_torch.md import Langevin
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import ensemble_bench as eb
+
+    monkeypatch.chdir(tmp_path)
+    calc = ActiveCalculator(covariance=None, calculator=EMT(), logfile=None,
+                            pckl=None, tape=None, kernel_kw=dict(
+                                cutoff=4.5, lmax=3, nmax=3), ediff=0.02,
+                            ediff_tot=0.05, fdiff=0.06, seed=0)
+    s = bulk_fcc("Cu", 3.6).repeat((2, 2, 2))
+    s.rattle(0.05, seed=0)
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 300, seed=1)
+    Langevin(s, 2 * units.fs, 300, friction=0.01, seed=2).run(10)
+    calc._calc = None
+    calc.meta = ActiveMeta(scale=0.05)
+    big = bulk_fcc("Cu", 3.6).repeat((3, 3, 3))
+    big.rattle(0.05, seed=4)
+    big.calc = calc
+    maxwell_boltzmann_velocities(big, 300, seed=5)
+    dyn = dmd.DeviceMD(big, calc, 2 * units.fs, temperature_K=300,
+                       chunk=10, check_beta=False)
+    assert dyn.meta_scale == 0.05
+    with db.evaluation_probe(dmd, "_sgpr_forces") as ev:
+        dyn.run(20)
+    assert dyn.nsteps == 20 and ev["calls"] >= 20 and ev["off"] == 0, ev
+    t = bulk_fcc("Cu", 3.6).repeat((3, 3, 3))
+    t.rattle(0.15, seed=33)
+    m = eb.meta_rel_err(calc, t, 0.05)
+    assert m["beta_median"] >= 1e-3, m
+    assert m["e_err"] <= m["e_tol"], m
+    assert m["f_err"] <= eb.META_F_TOL * m["f_scale"], m

@@ -4,19 +4,24 @@ counterpart of theforce/cl/__init__.py).
 Reads an ``ARGS`` file from the working directory — one ``key = value``
 python expression per line, ``#`` comments — and exposes
 :func:`gen_active_calc`, which merges ARGS over the ActiveCalculator's
-signature defaults.  ``calculator=`` accepts 'EMT' | 'LJ' | 'ZERO' | a
-path to a script; the oracle runs in this process.
+signature defaults.  ``calculator=`` accepts 'EMT' | 'LJ' | 'ZERO' |
+'VASP' | 'GAUSSIAN' | a path to a script.  The oracle runs in this
+process, or with ``inprocess = False`` in a calculation server
+(``python -m autoforce_tpu_torch.calculator.calc_server``) reached through
+a :class:`~autoforce_tpu_torch.calculator.socket.SocketCalculator` at
+``socket_ip`` / ``socket_port`` (default localhost:6666, the server's
+default).
 
 Two ARGS keys place the work: ``calc_device`` is the torch device of the
-calculator and the oracle (the card unless ``calc_device = 'cpu'``), and
-``dtype = 'float64'`` names the working type.  ``device`` keeps the JAX
-package's meaning: ``device = True`` is cl.neb's switch to the device NEB,
-and it places nothing.  Not ported yet, and
-refused with ``NotImplementedError``: ``mesh``, the 'VASP' and 'GAUSSIAN'
-adapters and ``inprocess = False`` (the TCP socket oracle).
+calculator and the in-process oracle (the card unless ``calc_device =
+'cpu'``), and ``dtype = 'float64'`` names the working type.  ``device``
+keeps the JAX package's meaning: ``device = True`` is cl.neb's switch to
+the device NEB, and it places nothing.  Not ported yet, and refused with
+``NotImplementedError``: ``mesh``.
 
 :func:`refresh` reads the file; the entry points (``python -m
-autoforce_tpu_torch.cl.{md,relax,neb}``) call it first.
+autoforce_tpu_torch.cl.{md,relax,neb,train,test,offline,init_model,
+singlepoint,build,shrink,lmp}``) call it first.
 """
 
 from __future__ import annotations
@@ -62,21 +67,29 @@ def _calc_script(name):
     table = {"EMT": "emt.py", "LJ": "lj.py", "ZERO": "zero.py"}
     if caps in table:
         return os.path.join(base, table[caps])
-    if caps in ("VASP", "GAUSSIAN"):
-        raise NotImplementedError(
-            f"the {caps} calculator adapter is not ported yet")
+    if caps == "VASP":
+        from ..calculator import vasp
+
+        return vasp.__file__
+    if caps == "GAUSSIAN":
+        from ..calculator import gaussian
+
+        return gaussian.__file__
     raise RuntimeError(f"calculator {caps} is not implemented")
 
 
-def resolve_calculator(value, inprocess=True, device="cuda"):
+def resolve_calculator(value, inprocess=True, device="cuda", ip="localhost",
+                       port=6666):
     if value is None or not isinstance(value, str):
         return value
-    if not inprocess:
-        raise NotImplementedError(
-            "the socket oracle (inprocess=False) is not ported yet")
-    from ..calculator.socket import get_scope
+    script = _calc_script(value)
+    if inprocess:
+        from ..calculator.socket import get_scope
 
-    return get_scope(_calc_script(value), device=device)["calc"]
+        return get_scope(script, device=device)["calc"]
+    from ..calculator.socket import SocketCalculator
+
+    return SocketCalculator(ip=ip, port=port, script=script)
 
 
 ARGS = {}
@@ -98,6 +111,8 @@ def refresh(path="ARGS"):
     if ARGS.get("calculator") is not None:
         ARGS["calculator"] = resolve_calculator(
             ARGS["calculator"], inprocess=inprocess, device=calc_device(),
+            ip=ARGS.get("socket_ip", "localhost"),
+            port=ARGS.get("socket_port", 6666),
         )
     return ARGS
 

@@ -6,6 +6,11 @@ read in the other.
 Compatible with the subset the reference relies on for trajectories and
 .sgpr tapes: Lattice, Properties=species:S:1:pos:R:3[:forces:R:3],
 energy=..., stress=... (9-component row-major), pbc.
+
+``write_xyz(..., exact=True)`` writes every float as its shortest exact
+decimal (``repr``) instead of the fixed 8 decimals of the position and
+force columns: the socket oracle's files, which must carry the oracle's
+results without rounding.  Either form reads back in both packages.
 """
 
 from __future__ import annotations
@@ -18,31 +23,35 @@ from ..data import atomic_numbers, chemical_symbols
 from ..system import SinglePointCalculator, System
 
 
-def _fmt_val(v):
+def _num(x, exact=False):
+    return repr(float(x)) if exact else f"{float(x):.12g}"
+
+
+def _fmt_val(v, exact=False):
     if isinstance(v, bool):
         return "T" if v else "F"
     if isinstance(v, (int, np.integer)):
         return str(int(v))
     if isinstance(v, (float, np.floating)):
-        return f"{float(v):.12g}"
+        return _num(v, exact)
     if isinstance(v, np.ndarray):
-        return " ".join(f"{float(x):.12g}" for x in v.reshape(-1))
+        return " ".join(_num(x, exact) for x in v.reshape(-1))
     return str(v)
 
 
-def write_xyz(path, systems, mode="w", forces=True):
+def write_xyz(path, systems, mode="w", forces=True, exact=False):
     if not isinstance(systems, (list, tuple)):
         systems = [systems]
     with open(path, mode) as f:
         for s in systems:
-            _write_one(f, s, forces)
+            _write_one(f, s, forces, exact)
 
 
-def _write_one(f, s, with_forces):
+def _write_one(f, s, with_forces, exact=False):
     n = len(s)
     comment = []
     if np.abs(s.cell).sum() > 0:
-        lat = " ".join(f"{x:.12g}" for x in s.cell.reshape(-1))
+        lat = " ".join(_num(x, exact) for x in s.cell.reshape(-1))
         comment.append(f'Lattice="{lat}"')
     props = "species:S:1:pos:R:3"
     forces = None
@@ -54,7 +63,7 @@ def _write_one(f, s, with_forces):
         props += ":forces:R:3"
     comment.append(f"Properties={props}")
     if "energy" in results:
-        comment.append(f"energy={_fmt_val(results['energy'])}")
+        comment.append(f"energy={_fmt_val(results['energy'], exact)}")
     if "stress" in results:
         st = np.asarray(results["stress"])
         if st.shape == (6,):  # Voigt -> full 3x3
@@ -62,15 +71,16 @@ def _write_one(f, s, with_forces):
             st = np.array(
                 [[v[0], v[5], v[4]], [v[5], v[1], v[3]], [v[4], v[3], v[2]]]
             )
-        comment.append(f'stress="{_fmt_val(st)}"')
+        comment.append(f'stress="{_fmt_val(st, exact)}"')
     pbc = "".join("T" if p else "F" for p in s.pbc)
     comment.append(f'pbc="{pbc[0]} {pbc[1]} {pbc[2]}"')
     f.write(f"{n}\n{' '.join(comment)}\n")
+    col = (lambda x: f" {float(x)!r}") if exact else (lambda x: f" {x:16.8f}")
     for i in range(n):
         sym = chemical_symbols[s.numbers[i]]
-        line = f"{sym:3s} " + " ".join(f"{x:16.8f}" for x in s.positions[i])
+        line = f"{sym:3s}" + "".join(col(x) for x in s.positions[i])
         if forces is not None:
-            line += " " + " ".join(f"{x:16.8f}" for x in forces[i])
+            line += "".join(col(x) for x in forces[i])
         f.write(line + "\n")
 
 

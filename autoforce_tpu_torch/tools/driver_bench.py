@@ -21,7 +21,7 @@ covariance=<model>, calculator=None, skin=1.2)``, at full width:
 :func:`stress_rel_err` holds the float32 strain gradient (the kernels)
 against float64 (the plain versions) on the card, :func:`band_rel_err` the
 stacked NEB band's float32 energies and forces against each image alone in
-float64; :func:`chunk_probe`
+float64 (the forces relative to :func:`slot_scale`); :func:`chunk_probe`
 counts a driver's chunks, steps and kernel launches and runs its first
 chunk under CUDA's sync debug mode; :func:`evaluation_probe` checks that
 every force evaluation launches each kernel once.
@@ -60,10 +60,15 @@ STRESS_REL_TOL = 1e-4
 # power ~4e-6 of each term (KB_KE_TOL in chip_smoke.py bounds a Gram
 # entry by 1e-5); the weights' signs cancel part of |E| but the atoms'
 # errors add at random, so 1e-5 of |E| holds either way.  Forces,
-# relative to the largest |f| of the band: a force row sums ~2K slot
-# terms of both signs from the backward kernel (each within 1e-5 of the
-# largest slot term, chip_smoke F32_REL_TOL) through the power spectrum's
-# backward, so ten times that, as KB_KF_TOL bounds the force columns.
+# relative to the largest per-slot term that the backward sums, the
+# largest |dE/d rvec| component over the live slots of the rows
+# (:func:`slot_scale`): a force row sums ~2K slot terms of both signs from
+# the backward kernel (each within 1e-5 of the largest slot term,
+# chip_smoke F32_REL_TOL) through the power spectrum's backward, so ten
+# times that, as KB_KF_TOL bounds the force columns.  The net |f| of a
+# row is no scale for this error: the slot terms cancel to it, and on a
+# relaxed band it falls to 0.25-0.6 eV/A while the float32 error stays
+# ~3e-5 eV/A.
 BAND_E_TOL = 1e-5
 BAND_F_TOL = 1e-4
 
@@ -133,13 +138,51 @@ def stress_rel_err(calc, system):
     return err, d64.abs().max().item(), d64.cpu().numpy()
 
 
+def slot_scale(cfg, ma, radii, vs, eng, ks=None, mean_e=None, nimg=1):
+    """The largest |dE/d rvec| component over the live neighbor slots of
+    ``cfg``'s rows: the largest single term that the backward kernel sums
+    into a force.  One autograd call of the float64 energy through the
+    plain versions (the committee energy with ``mean_e``), with respect to
+    the rows' displacement vectors."""
+    from .. import engine as engine_mod
+    from ..md.device_md import _committee_e
+
+    f64 = torch.float64
+    pos, cell, radii = cfg.positions.to(f64), cfg.cell.to(f64), radii.to(f64)
+    with torch.no_grad():
+        rvec = engine_mod._env_rvec(pos, cell, cfg)
+    rvec = rvec.detach().requires_grad_(True)
+    env_rvec = engine_mod._env_rvec
+    # every displacement the energy reads is this leaf
+    engine_mod._env_rvec = lambda *a, **k: rvec
+    try:
+        with plain_kernels(), torch.enable_grad():
+            if mean_e is None:
+                cov, _, _ = engine_mod._total_cov(
+                    pos, cell, cfg, ma.X_desc, ma.X_num, ma.X_lone, radii,
+                    eng.params, eng.exponent, ks=ks, pair_d=ma.pair_d,
+                    pair_mask=ma.pair_mask)
+                cov = cov * (cfg.atom_mask[:, None] & ma.m_mask[None, :])
+                e = cov @ ma.mu
+            else:
+                e, _ = _committee_e(pos, cell, cfg, ma, radii, vs.to(f64),
+                                    mean_e, eng.params, eng.exponent, ks,
+                                    nimg=nimg)
+            (g,) = torch.autograd.grad(e.sum(), rvec)
+    finally:
+        engine_mod._env_rvec = env_rvec
+    live = cfg.nbr_mask & cfg.atom_mask[:, None]
+    return g[live].abs().max().item()
+
+
 def band_rel_err(band):
     """The interior images of ``band`` (a DeviceNEB) as its chunks see
     them: stacked as rows of one configuration, float32 through the
     kernels, against each image alone in float64 through the plain
-    versions.  Returns (energy error, largest |E|, force error, largest
-    |f|, the kernels' inputs on the stacked rows: rvec, sidx, mask,
-    radii)."""
+    versions.  Returns (energy error, largest |E|, force error, the
+    force scale ``BAND_F_TOL`` holds it to (:func:`slot_scale` of the
+    stacked rows), the largest net |f| (printed beside it), the kernels'
+    inputs on the stacked rows: rvec, sidx, mask, radii)."""
     from ..engine import _env_rvec
     from ..opt.device_neb import band_forces
 
@@ -164,12 +207,14 @@ def band_rel_err(band):
             e_ref.append(e)
             f_ref.append(f)
     e_ref, f_ref = torch.cat(e_ref), torch.cat(f_ref)
+    scale = slot_scale(cfg, ma, radii, vs, eng, ch["ks"], mean_e,
+                       nimg=pos.shape[0])
     with torch.no_grad():
         rvec = _env_rvec(cfg.positions, cfg.cell, cfg).contiguous()
     rows = (rvec, cfg.nbr_sidx, cfg.nbr_mask & cfg.atom_mask[:, None], radii)
     return ((e32.to(f64) - e_ref).abs().max().item(),
             e_ref.abs().max().item(),
-            (f32.to(f64) - f_ref).abs().max().item(),
+            (f32.to(f64) - f_ref).abs().max().item(), scale,
             f_ref.abs().max().item(), rows)
 
 

@@ -90,10 +90,12 @@ def replica_rel_err(dyn):
     """The walkers of ``dyn`` (a ReplicaMD) stacked as its chunks stack
     them, float32 through the kernels, against each walker alone in
     float64 through the plain versions.  Returns (energy error, largest
-    |E|, force error, largest |f|, the kernels' inputs on the stacked
-    rows)."""
+    |E|, force error, the force scale ``BAND_F_TOL`` holds it to
+    (``driver_bench.slot_scale`` of the stacked rows), the largest net
+    |f|, the kernels' inputs on the stacked rows)."""
     from ..engine import _env_rvec
     from ..md.device_md import _sgpr_forces
+    from .driver_bench import slot_scale
 
     eng = dyn.calc.engine
     ch = dyn._build_chain()
@@ -115,12 +117,13 @@ def replica_rel_err(dyn):
             e_ref.append(e)
             f_ref.append(f)
     e_ref, f_ref = torch.stack(e_ref), torch.cat(f_ref)
+    scale = slot_scale(cfg, ma, radii, vs, eng, ch["ks"])
     with torch.no_grad():
         rvec = _env_rvec(cfg.positions, cfg.cell, cfg).contiguous()
     rows = (rvec, cfg.nbr_sidx, cfg.nbr_mask & cfg.atom_mask[:, None], radii)
     return ((e32.to(f64) - e_ref).abs().max().item(),
             e_ref.abs().max().item(),
-            (f32.to(f64) - f_ref).abs().max().item(),
+            (f32.to(f64) - f_ref).abs().max().item(), scale,
             f_ref.abs().max().item(), rows)
 
 

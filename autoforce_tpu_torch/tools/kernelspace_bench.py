@@ -176,9 +176,10 @@ def ef_lml_value(eng, recs):
 
 
 def predict_rel_err(calc, system):
-    """(energy error, |E|, largest force error, largest |f|) of float32
-    predict through the kernels against float64 through the plain
-    versions, on ``system`` with ``calc``'s model."""
+    """(energy error, |E|, largest force error, largest |f|, force MAE) of
+    float32 predict through the kernels against float64 through the plain
+    versions, on ``system`` with ``calc``'s model (staged as the calculator
+    stages it)."""
     from .driver_bench import plain_kernels
 
     eng = calc.engine
@@ -197,7 +198,8 @@ def predict_rel_err(calc, system):
     n = len(system)
     f32, f64 = f32[:n].double(), f64[:n]
     return (abs(float(e32) - float(e64)), abs(float(e64)),
-            (f32 - f64).abs().max().item(), f64.abs().max().item())
+            (f32 - f64).abs().max().item(), f64.abs().max().item(),
+            (f32 - f64).abs().mean().item())
 
 
 def frozen_rate(calc, system, steps, warmup=CHUNK):

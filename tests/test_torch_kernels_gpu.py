@@ -364,7 +364,8 @@ def test_neb_launches_each_kernel_once_per_band_evaluation(cuda):
 def test_neb_band_float32_matches_float64_per_image(cuda):
     """The interior images stacked as the band's chunks see them, float32
     through the kernels, against each image alone in float64 through the
-    plain versions (tolerances justified beside driver_bench.BAND_F_TOL)."""
+    plain versions (tolerances justified beside driver_bench.BAND_F_TOL;
+    the forces relative to the largest slot term, driver_bench.slot_scale)."""
     from autoforce_tpu_torch.opt import device_neb as dneb
     from autoforce_tpu_torch.opt.neb import interpolate_images
 
@@ -374,7 +375,7 @@ def test_neb_band_float32_matches_float64_per_image(cuda):
     for im in images:
         im.calc = calc
     band = dneb.DeviceNEB(images, calc, k=0.1, climb=True, check_beta=False)
-    de, e_scale, df, f_scale, rows = db.band_rel_err(band)
+    de, e_scale, df, f_scale, _, rows = db.band_rel_err(band)
     assert rows[0].shape[0] == 3 * band._npad
     assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
     assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)
@@ -551,7 +552,7 @@ def test_neb_band_with_a_cell_per_image_on_card(cuda):
     with db.evaluation_probe(dneb, "band_forces") as ev:
         band.run(fmax=1e-9, steps=16)
     assert band.nsteps == 16 and ev["calls"] >= 16 and ev["off"] == 0, ev
-    de, e_scale, df, f_scale, _ = db.band_rel_err(band)
+    de, e_scale, df, f_scale, _, _ = db.band_rel_err(band)
     assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
     assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)
 
@@ -578,7 +579,7 @@ def test_replica_ensemble_step_on_card(cuda):
     with db.evaluation_probe(dmd, "_sgpr_forces") as ev:
         dyn.run(20)
     assert dyn.nsteps == 20 and ev["calls"] >= 20 and ev["off"] == 0, ev
-    de, e_scale, df, f_scale, rows = eb.replica_rel_err(dyn)
+    de, e_scale, df, f_scale, _, rows = eb.replica_rel_err(dyn)
     assert rows[0].shape[0] == 3 * 256
     assert de <= db.BAND_E_TOL * e_scale, (de, e_scale)
     assert df <= db.BAND_F_TOL * f_scale, (df, f_scale)

@@ -18,8 +18,9 @@ The engine's whole kernel space is served (kernel expressions, alchemical
 mixing, pair terms), and ``kernel_hpo=k`` optimizes the kernel
 expression's hyperparameters every k-th model update
 (:mod:`..regression.hpo`).  A metadynamics bias (``calc.meta``, one of
-:mod:`.meta`) adds its energy and forces after each prediction.  Not
-ported: the device mesh.
+:mod:`.meta`) adds its energy and forces after each prediction.  With
+``mesh=`` (:func:`..parallel.mesh.make_mesh`) the engine predicts and
+builds the training covariance sharded over the mesh.
 """
 
 from __future__ import annotations
@@ -128,11 +129,13 @@ class ActiveCalculator:
         if calculator is not None and not callable(
                 getattr(calculator, "calculate", None)):
             raise TypeError(f"oracle {calculator!r} has no calculate()")
-        if mesh is not None:
-            raise NotImplementedError("the device mesh is not ported yet")
         self._calc = calculator
         self.pckl = pckl
         self._get_model(covariance, kernel_kw or {}, device, dtype)
+        self.mesh = mesh
+        if mesh is not None:
+            # sharded predict and training covariance (parallel/mesh.py)
+            self.engine.mesh = mesh
         self.ediff = ediff
         self.ediff_lb = ediff_lb if ediff_lb is not None else ediff
         self.ediff_ub = ediff_ub if ediff_ub is not None else ediff

@@ -16,8 +16,10 @@ Two ARGS keys place the work: ``calc_device`` is the torch device of the
 calculator and the in-process oracle (the card unless ``calc_device =
 'cpu'``), and ``dtype = 'float64'`` names the working type.  ``device``
 keeps the JAX package's meaning: ``device = True`` is cl.neb's switch to
-the device NEB, and it places nothing.  Not ported yet, and refused with
-``NotImplementedError``: ``mesh``.
+the device NEB, and it places nothing.  ``mesh = make_mesh(...)`` shards
+the calculator's predictions and the device drivers over a device mesh
+(:mod:`..parallel.mesh`; its first device must be ``calc_device``, e.g.
+``make_mesh(data=2, model=2, devices=['cuda:0'] * 4)`` on one card).
 
 :func:`refresh` reads the file; the entry points (``python -m
 autoforce_tpu_torch.cl.{md,relax,neb,train,test,offline,init_model,
@@ -35,10 +37,8 @@ from ..calculator.active import ActiveCalculator
 # kcal_mol into its cl namespace for exactly this, theforce/cl/__init__.py:16)
 from ..units import GPa, bar, fs, kB, kcal_mol  # noqa: F401
 
-
-def make_mesh(*args, **kwargs):
-    """``mesh = make_mesh(...)`` in an ARGS file: refused."""
-    raise NotImplementedError("the device mesh is not ported yet")
+# make_mesh so that `mesh = make_mesh(data=2, model=2)` works in ARGS
+from ..parallel import make_mesh  # noqa: F401
 
 
 def strip(line):
@@ -99,8 +99,6 @@ def refresh(path="ARGS"):
     """(Re)read the ARGS file from the current working directory."""
     ARGS.clear()
     ARGS.update(read_args(path))
-    if ARGS.get("mesh") is not None:
-        raise NotImplementedError("the device mesh is not ported yet")
     if isinstance(ARGS.get("dtype"), str):
         # the working type by name ('float32' | 'float64'): ARGS
         # expressions cannot name torch objects

@@ -28,8 +28,10 @@ the JAX package rides along as a :class:`KernelSpace` (``Engine.
 kernel_space()``): the base kernel (``"dot"``, ``"rbf"``, ``"normed"`` or a
 :class:`~.kernelalgebra.KernelExpr`), the alchemical central factor and
 species mixing (``chemical="rbf"``) and two-body pair terms
-(:mod:`.pairkernels`, plain torch on the neighbor distances).  The device
-mesh is not ported: the Engine refuses it.
+(:mod:`.pairkernels`, plain torch on the neighbor distances).  With a
+device mesh (``Engine(mesh=...)``, :mod:`.parallel.mesh`) ``predict`` and
+``kernel_block`` run sharded: atom rows over the mesh's ``'data'`` axis,
+inducing columns over its ``'model'`` axis.
 """
 
 from __future__ import annotations
@@ -160,14 +162,20 @@ class _NbrGatherRev(torch.autograd.Function):
         return dpos.sum(dim=1), None, None, None
 
 
-def _env_rvec(positions, cell, cfg: ConfigArrays, use_rev=False):
+def _env_rvec(positions, cell, cfg: ConfigArrays, oidx=None, use_rev=False):
     """Neighbor displacement vectors (N, K, 3).
 
     ``cell``: (3, 3), or (N, 3, 3) with a cell per row (the stacked images
-    of a band whose images differ in cell).  ``use_rev``: route the
-    neighbor gather through the reverse-slot backward (first-order callers
-    only — the MD/predict hot paths)."""
-    if use_rev and cfg.nbr_rev is not None:
+    of a band whose images differ in cell).  ``oidx`` maps table rows to
+    rows of ``positions``: under a mesh the tables are sharded by rows
+    while the positions stay whole (neighbors cross shard boundaries), so
+    row i of the table is atom ``oidx[i]``; None means they are aligned.
+    ``use_rev``: route the neighbor gather through the reverse-slot
+    backward (first-order callers only — the MD/predict hot paths); with
+    ``oidx`` the backward is the plain scatter, as padding a sharded table
+    breaks the flat ``i*K + k`` reverse slots."""
+    own = positions if oidx is None else positions[oidx]
+    if use_rev and cfg.nbr_rev is not None and oidx is None:
         nbrs = _NbrGatherRev.apply(positions, cfg.nbr_idx, cfg.nbr_rev,
                                    cfg.nbr_mask)
     else:
@@ -179,7 +187,7 @@ def _env_rvec(positions, cell, cfg: ConfigArrays, use_rev=False):
     shift = (off[..., 0, None] * c[..., 0, :]
              + off[..., 1, None] * c[..., 1, :]
              + off[..., 2, None] * c[..., 2, :])
-    return nbrs - positions[:, None, :] + shift
+    return nbrs - own[:, None, :] + shift
 
 
 def _chem_mix(p, mixL, nspecies):
@@ -194,8 +202,9 @@ def _chem_mix(p, mixL, nspecies):
     return q.reshape(*batch, -1)
 
 
-def _config_descriptors(positions, cell, cfg, radii, params, use_rev=False):
-    rvec = _env_rvec(positions, cell, cfg, use_rev=use_rev)
+def _config_descriptors(positions, cell, cfg, radii, params, oidx=None,
+                        use_rev=False):
+    rvec = _env_rvec(positions, cell, cfg, oidx=oidx, use_rev=use_rev)
     mask = cfg.nbr_mask & cfg.atom_mask[:, None]
     p = sesoap_descriptors_k(rvec, cfg.nbr_sidx, mask, radii, params)
     # neighbor tables may carry skin-buffered pairs beyond rc (inert in the
@@ -206,14 +215,14 @@ def _config_descriptors(positions, cell, cfg, radii, params, use_rev=False):
     return p, lone
 
 
-def _pair_rows(rvec, cfg, znum, term):
+def _pair_rows(rvec, cfg, znum, term, oidx=None):
     """(distances (N, K), selected-pair mask) of a configuration's rows
-    for one pair term."""
+    for one pair term (``oidx``: the rows' atoms, :func:`_env_rvec`)."""
     d = torch.sqrt((rvec * rvec).sum(-1) + 1e-30)
     nbrz = znum[cfg.nbr_sidx.long().clamp(0, znum.shape[0] - 1)]
     mask = cfg.nbr_mask & cfg.atom_mask[:, None]
     m1 = config_pair_mask(term, cfg.numbers, nbrz, cfg.nbr_idx, cfg.nbr_off,
-                          mask)
+                          mask, own_idx=oidx)
     return d, m1
 
 
@@ -233,27 +242,61 @@ def _self_alpha(p, lone, exponent, ks):
     return torch.clamp(alpha, min=1e-12)
 
 
+class LceRows(NamedTuple):
+    """The per-row part of a covariance block: (mixed) descriptors, lone
+    flags, the kernel diagonal alpha and each pair term's (distances,
+    selected-pair mask)."""
+    p: torch.Tensor
+    lone: torch.Tensor
+    alpha: torch.Tensor
+    pairs: tuple = ()
+
+
+def lce_rows(posd, celld, cfg, radii, params, exponent, ks=None, oidx=None,
+             use_rev=False) -> LceRows:
+    """The rows of :func:`_total_cov`, computed once whatever the columns
+    (under a mesh: once per data shard, for every inducing block)."""
+    ks = ks or PLAIN
+    p, lone = _config_descriptors(posd, celld, cfg, radii, params, oidx=oidx,
+                                  use_rev=use_rev)
+    p = _chem_mix(p, ks.mixL, radii.shape[0])
+    alpha = _self_alpha(p, lone, exponent, ks)
+    pairs = []
+    if ks.pair_terms:
+        rvec = _env_rvec(posd, celld, cfg, oidx=oidx, use_rev=use_rev)
+        for term in ks.pair_terms:
+            d, m1 = _pair_rows(rvec, cfg, ks.znum, term, oidx=oidx)
+            pairs.append((d, m1))
+            alpha = alpha + pair_diag(d, m1, term)
+    return LceRows(p, lone, alpha, tuple(pairs))
+
+
+def rows_cov(rows: LceRows, numbers, X_desc, X_num, X_lone, exponent, ks=None,
+             pair_d=None, pair_mask=None):
+    """The covariance block (n, M) of ``rows`` against inducing columns
+    (``pair_d`` / ``pair_mask``: their staged pair distances (T, M, KX))."""
+    ks = ks or PLAIN
+    cov = gram(rows.p, numbers, rows.lone, X_desc, X_num, X_lone, exponent,
+               chem=ks.chem_z, kind=ks.kind)
+    for t, (term, (d, m1)) in enumerate(zip(ks.pair_terms, rows.pairs)):
+        cov = cov + pair_gram(d, m1, pair_d[t], pair_mask[t], term)
+    return cov
+
+
 def _total_cov(posd, celld, cfg, X_desc, X_num, X_lone, radii, params,
-               exponent, use_rev=False, ks=None, pair_d=None, pair_mask=None):
+               exponent, use_rev=False, ks=None, pair_d=None, pair_mask=None,
+               oidx=None):
     """SOAP covariance block (n, M) plus the pair terms' contributions,
     lone flags and the per-LCE kernel diagonal alpha (the covloss
     normalization; 1 for the normalized dot kernel).  ``ks``: the
     :class:`KernelSpace` (None: the plain dot kernel); ``pair_d`` /
-    ``pair_mask``: the inducing set's staged pair distances (T, M, KX)."""
-    ks = ks or PLAIN
-    p, lone = _config_descriptors(posd, celld, cfg, radii, params,
-                                  use_rev=use_rev)
-    p = _chem_mix(p, ks.mixL, radii.shape[0])
-    cov = gram(p, cfg.numbers, lone, X_desc, X_num, X_lone, exponent,
-               chem=ks.chem_z, kind=ks.kind)
-    alpha = _self_alpha(p, lone, exponent, ks)
-    if ks.pair_terms:
-        rvec = _env_rvec(posd, celld, cfg, use_rev=use_rev)
-        for t, term in enumerate(ks.pair_terms):
-            d, m1 = _pair_rows(rvec, cfg, ks.znum, term)
-            cov = cov + pair_gram(d, m1, pair_d[t], pair_mask[t], term)
-            alpha = alpha + pair_diag(d, m1, term)
-    return cov, lone, alpha
+    ``pair_mask``: the inducing set's staged pair distances (T, M, KX);
+    ``oidx``: see :func:`_env_rvec`."""
+    rows = lce_rows(posd, celld, cfg, radii, params, exponent, ks, oidx,
+                    use_rev)
+    cov = rows_cov(rows, cfg.numbers, X_desc, X_num, X_lone, exponent, ks,
+                   pair_d, pair_mask)
+    return cov, rows.lone, rows.alpha
 
 
 def predict_fn(cfg: ConfigArrays, model: ModelArrays, radii, vscale_atom,
@@ -367,12 +410,23 @@ def _atom_sum(rbar, cfg):
     return out.index_add_(len(lead), cfg.nbr_idx.reshape(-1).long(), flat)
 
 
-def _force_virial(rbar, r0, cfg):
+def _force_virial(rbar, r0, cfg, oidx=None, amask=None):
     """(Kf (C, N, 3), Kv (C, 3, 3)) of C columns from their displacement
     gradients rbar (C, N, K, 3) = dKe/drvec: forces_energy = -leftgrad,
-    virial = sym(sum rvec (x) rbar)."""
-    dpos = _atom_sum(rbar, cfg) - rbar.sum(dim=-2)
-    kf = -dpos * cfg.atom_mask[:, None].to(dpos.dtype)
+    virial = sym(sum rvec (x) rbar).  ``oidx``: the table rows are these
+    atoms of a configuration whose atom mask is ``amask`` (a mesh shard's
+    rows, :func:`_env_rvec`); Kf then covers every atom, a partial sum
+    over this shard's rows."""
+    if oidx is None:
+        dpos = _atom_sum(rbar, cfg) - rbar.sum(dim=-2)
+        amask = cfg.atom_mask
+    else:
+        lead, n = rbar.shape[:-3], amask.shape[0]
+        dpos = torch.zeros((*lead, n, 3), dtype=rbar.dtype, device=rbar.device)
+        dpos.index_add_(len(lead), cfg.nbr_idx.reshape(-1).long(),
+                        rbar.reshape(*lead, -1, 3))
+        dpos.index_add_(len(lead), oidx, -rbar.sum(dim=-2))
+    kf = -dpos * amask[:, None].to(dpos.dtype)
     deps = torch.einsum("nka,cnkb->cab", r0, rbar)
     return kf, 0.5 * (deps + deps.transpose(1, 2))
 
@@ -392,10 +446,12 @@ class _Rows(NamedTuple):
     p: torch.Tensor
 
 
-def _stack_rows(cfgs, radii, params, mixL=None) -> _Rows:
-    """The per-configuration part of the kernel columns."""
+def _stack_rows(cfgs, radii, params, mixL=None, oidx=None) -> _Rows:
+    """The per-configuration part of the kernel columns (``oidx``: one
+    configuration's rows, :func:`_env_rvec`)."""
     with torch.no_grad():
-        r0 = torch.cat([_env_rvec(c.positions, c.cell, c) for c in cfgs])
+        r0 = torch.cat([_env_rvec(c.positions, c.cell, c, oidx=oidx)
+                        for c in cfgs])
         mask = torch.cat([c.nbr_mask & c.atom_mask[:, None] for c in cfgs])
         sidx = torch.cat([c.nbr_sidx for c in cfgs])
         numbers = torch.cat([c.numbers for c in cfgs])
@@ -413,7 +469,7 @@ def _stack_rows(cfgs, radii, params, mixL=None) -> _Rows:
     return _Rows(r0, sidx, mask, numbers, amask, lone, cr, ci, p)
 
 
-def _pair_columns(rows: _Rows, cfgs, x_pd, x_pm, ks):
+def _pair_columns(rows: _Rows, cfgs, x_pd, x_pm, ks, oidx=None):
     """Pair terms' (ke (C, B), rbar (C, B n, K, 3)) of C staged pair sets
     (x_pd, x_pm: (C, T, KX)) against the stacked rows, in plain torch on
     the distances: every per-slot contribution depends on its own slot's
@@ -426,7 +482,7 @@ def _pair_columns(rows: _Rows, cfgs, x_pd, x_pm, ks):
     rbar = torch.zeros((C, B, n, kpad, 3), dtype=dtype, device=r0.device)
     for b, cfg in enumerate(cfgs):
         for t, term in enumerate(ks.pair_terms):
-            d, m1 = _pair_rows(r0[b], cfg, ks.znum, term)
+            d, m1 = _pair_rows(r0[b], cfg, ks.znum, term, oidx=oidx)
             d = d.to(dtype)
             x1, f1 = _psi(d, term), _factor(d, term) * m1
             x2 = _psi(x_pd[:, t].to(dtype), term)
@@ -440,9 +496,9 @@ def _pair_columns(rows: _Rows, cfgs, x_pd, x_pm, ks):
     return ke, rbar.reshape(C, B * n, kpad, 3)
 
 
-def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
-             exponent, ks=None, x_pd=None, x_pm=None):
-    """The per-column part: (ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3))
+def _column_grads(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
+                  exponent, ks=None, x_pd=None, x_pm=None, oidx=None):
+    """The per-column part: (ke (C, B), rbar (C, B n, K, 3) = dKe/drvec)
     of C inducing environments against the stacked rows of ``cfgs``."""
     ks = ks or PLAIN
     n, kpad = cfgs[0].nbr_idx.shape
@@ -471,9 +527,20 @@ def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
         gci.reshape(C * nrows, -1).contiguous(), params,
     ).reshape(C, nrows, kpad, 3)
     if ks.pair_terms:
-        ke_p, rbar_p = _pair_columns(rows, cfgs, x_pd, x_pm, ks)
+        ke_p, rbar_p = _pair_columns(rows, cfgs, x_pd, x_pm, ks, oidx)
         ke = ke + ke_p.to(ke.dtype)
         rbar = rbar + rbar_p.to(rbar.dtype)
+    return ke, rbar
+
+
+def _columns(rows: _Rows, cfgs, x_desc, x_num, x_lone, radii, params,
+             exponent, ks=None, x_pd=None, x_pm=None):
+    """(ke (C, B), kf (C, B, N, 3), kv (C, B, 3, 3)) of C inducing
+    environments against the stacked rows of ``cfgs``."""
+    n, kpad = cfgs[0].nbr_idx.shape
+    B, C = len(cfgs), x_desc.shape[0]
+    ke, rbar = _column_grads(rows, cfgs, x_desc, x_num, x_lone, radii, params,
+                             exponent, ks, x_pd, x_pm)
     rbar = rbar.reshape(C, B, n, kpad, 3)
     kf, kv = [], []
     r0 = rows.r0.reshape(B, n, kpad, 3)
@@ -518,31 +585,36 @@ def _model_pairs(model, sl):
 
 
 def kernel_block_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
-                    exponent, batch_size=64, ks=None):
+                    exponent, batch_size=64, ks=None, m=None, oidx=None,
+                    amask=None):
     """(Ke row (M,), Kf block (N, 3, M), Kv block (3, 3, M)) of a
     configuration against the inducing set: one forward launch and power
     spectrum, then ``batch_size`` columns per backward-kernel launch;
-    columns beyond the live inducing set are 0 (the padding rows' kernel
-    is 0 in the JAX package too)."""
+    columns beyond the live inducing set (the first ``m``, counted here
+    when not given) are 0 (the padding rows' kernel is 0 in the JAX
+    package too).  ``oidx`` / ``amask``: the table rows are these atoms
+    of a configuration with this atom mask (a mesh shard's rows); the
+    block is then this shard's partial sum."""
     mcap = model.mu.shape[0]
-    m = int(model.m_mask.sum())
-    n = cfg.nbr_idx.shape[0]
+    m = int(model.m_mask.sum()) if m is None else m
+    n = cfg.nbr_idx.shape[0] if amask is None else amask.shape[0]
     dtype = torch.promote_types(cfg.positions.dtype, model.X_desc.dtype)
     dev = cfg.positions.device
     ke = torch.zeros(mcap, dtype=dtype, device=dev)
     kf = torch.zeros((n, 3, mcap), dtype=cfg.positions.dtype, device=dev)
     kv = torch.zeros((3, 3, mcap), dtype=cfg.positions.dtype, device=dev)
     mixL = ks.mixL if ks is not None else None
-    rows = _stack_rows([cfg], radii, params, mixL)
+    rows = _stack_rows([cfg], radii, params, mixL, oidx=oidx)
     for lo in range(0, m, batch_size):
         sl = slice(lo, min(lo + batch_size, m))
         x_pd, x_pm = _model_pairs(model, sl)
-        e, f, v = _columns(rows, [cfg], model.X_desc[sl], model.X_num[sl],
-                           model.X_lone[sl], radii, params, exponent, ks,
-                           x_pd, x_pm)
+        e, rbar = _column_grads(rows, [cfg], model.X_desc[sl],
+                                model.X_num[sl], model.X_lone[sl], radii,
+                                params, exponent, ks, x_pd, x_pm, oidx)
+        f, v = _force_virial(rbar, rows.r0, cfg, oidx, amask)
         ke[sl] = e[:, 0]
-        kf[..., sl] = f[:, 0].permute(1, 2, 0)
-        kv[..., sl] = v[:, 0].permute(1, 2, 0)
+        kf[..., sl] = f.permute(1, 2, 0)
+        kv[..., sl] = v.permute(1, 2, 0)
     return ke, kf, kv
 
 
@@ -612,15 +684,15 @@ class _Chain(NamedTuple):
     wlm: torch.Tensor  # (L, 1, L) the m weights
 
 
-def _coeff_chain(cfg: ConfigArrays, radii, params) -> _Chain:
+def _coeff_chain(cfg: ConfigArrays, radii, params, oidx=None) -> _Chain:
     """One forward launch, one one-hot backward launch, and the spectrum
-    in the configuration's type."""
+    in the configuration's type (``oidx``: :func:`_env_rvec`)."""
     n, kpad = cfg.nbr_idx.shape
     S = radii.shape[0]
     nf, L = params.nmax + 1, params.lmax + 1
     P, Q = S * nf, nf * L * L
     wd = cfg.positions.dtype
-    r0 = _env_rvec(cfg.positions, cfg.cell, cfg)
+    r0 = _env_rvec(cfg.positions, cfg.cell, cfg, oidx=oidx)
     mask = cfg.nbr_mask & cfg.atom_mask[:, None]
     sidx = cfg.nbr_sidx
     cr, ci = soap_coeff_fwd(r0, sidx, mask, radii, params)
@@ -667,7 +739,7 @@ def _chain_vjp(ch: _Chain, xs, S, params, lead_eq):
 
 
 def kernel_block_jac_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
-                        exponent, chunk=128):
+                        exponent, chunk=128, m=None, oidx=None, amask=None):
     """(Ke row, Kf block, Kv block) via the descriptor Jacobian.
 
     Instead of one backward per inducing column (``kernel_block_fn``), the
@@ -685,14 +757,16 @@ def kernel_block_jac_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
     (the JAX package's ``kernel_block_jac_fn``, which takes the descriptor
     Jacobian by forward mode).  SOAP dot kernel only: no pair terms, no
     alchemical mixing, no other base kernel.  The products run in the
-    configuration's type, W in the Gram block's."""
+    configuration's type, W in the Gram block's.  ``m``, ``oidx`` and
+    ``amask`` as in :func:`kernel_block_fn`."""
     n, kpad = cfg.nbr_idx.shape
+    nout = n if amask is None else amask.shape[0]
     S = radii.shape[0]
     wd = cfg.positions.dtype
     mcap = model.mu.shape[0]
-    m = int(model.m_mask.sum())
+    m = int(model.m_mask.sum()) if m is None else m
     with torch.no_grad():
-        ch = _coeff_chain(cfg, radii, params)
+        ch = _coeff_chain(cfg, radii, params, oidx)
         gd = torch.promote_types(wd, model.X_desc.dtype)
         dot = ch.p.to(gd) @ model.X_desc.to(gd).T  # (n, M)
         same = (cfg.numbers[:, None] == model.X_num[None, :]).to(gd)
@@ -703,7 +777,7 @@ def kernel_block_jac_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
         dotw = dot.to(wd)
         # J_i^T p~_i, once per row
         bt = _chain_vjp(ch, _sym_blocks(ch.praw, S, params), S, params, True)
-        kf = torch.zeros((n, 3, mcap), dtype=wd, device=ch.p.device)
+        kf = torch.zeros((nout, 3, mcap), dtype=wd, device=ch.p.device)
         kv = torch.zeros((3, 3, mcap), dtype=wd, device=ch.p.device)
         for lo in range(0, m, chunk):
             sl = slice(lo, min(lo + chunk, m))
@@ -714,7 +788,7 @@ def kernel_block_jac_fn(cfg: ConfigArrays, model: ModelArrays, radii, params,
                 / ch.nrm[..., None]
             g = g * W[:, sl, None]
             rbar = torch.bmm(g, ch.jfull).reshape(n, -1, kpad, 3).transpose(0, 1)
-            f, v = _force_virial(rbar, ch.r0, cfg)
+            f, v = _force_virial(rbar, ch.r0, cfg, oidx, amask)
             kf[..., sl] = f.permute(1, 2, 0)
             kv[..., sl] = v.permute(1, 2, 0)
     return ke, kf, kv
@@ -802,8 +876,6 @@ class Engine:
     def __init__(self, params: SoapParams = None, exponent=4, radii=None,
                  species=None, dtype=None, device="cuda", pair_terms=(),
                  chemical=None, mesh=None, kernel=None):
-        if mesh is not None:
-            raise NotImplementedError("the device mesh is not ported yet")
         self.params = params or SoapParams()
         self.exponent = int(exponent)
         self.radii = as_radii(radii if radii is not None else 1.0)
@@ -821,6 +893,9 @@ class Engine:
                 or self.kernel_kind in ("dot", "rbf", "normed")):
             raise ValueError(f"unknown kernel kind {self.kernel_kind!r}")
         self.device = resolve_device(device)
+        # ('data', 'model') device mesh (parallel/mesh.py): predict and
+        # kernel_block then run sharded; its first device is this one
+        self.mesh = mesh
         # float32 is the working type of configurations and descriptors on
         # the card (as on the TPU).  The model state (inducing descriptors,
         # weights, choli) stays float64: the energy sum(cov @ mu) cancels
@@ -833,14 +908,32 @@ class Engine:
         self.model_dtype = torch.float64
         self._tables = {}  # species tuple -> (znum, chem_z, mixL) on device
 
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh):
+        if mesh is not None:
+            from .parallel.mesh import Mesh, same_device
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), "
+                                f"not {type(mesh).__name__}")
+            if not same_device(mesh.first, self.device):
+                raise ValueError(f"the mesh's first device {mesh.first} is "
+                                 f"not the engine's {self.device}")
+        self._mesh = mesh
+
     def clone_config(self):
         """A fresh Engine with the same kernel configuration (params,
-        exponent, radii, species, pair terms, chemical, base kernel, device
-        and types)."""
+        exponent, radii, species, pair terms, chemical, base kernel, mesh,
+        device and types)."""
         eng = Engine(params=self.params, exponent=self.exponent,
                      radii=self.radii, species=list(self.species),
                      dtype=self.dtype, device=self.device,
                      pair_terms=self.pair_terms, chemical=self.chemical,
+                     mesh=self.mesh,
                      kernel=self.kernel_kind if self.kernel_kind != "dot" else None)
         eng.pair_kx = self.pair_kx
         eng.env_kpad = self.env_kpad
@@ -951,6 +1044,25 @@ class Engine:
         idx_t = self._tensor(nbr_idx)
         off_t = self._tensor(nbr_off)
         mask_t = self._tensor(nbr_mask)
+        # the sharded paths never read the reverse slots (padding for the
+        # mesh breaks their flat i*K + k indexing): no table under a mesh
+        rev_t = None if self.mesh is not None else self._reverse_slots(
+            nbr_idx, nbr_off, nbr_mask, idx_t, off_t, mask_t)
+        return ConfigArrays(
+            positions=self._tensor(positions, self.dtype),
+            cell=self._tensor(system.cell, self.dtype),
+            numbers=self._tensor(numbers),
+            atom_mask=self._tensor(atom_mask),
+            nbr_idx=idx_t,
+            nbr_off=off_t,
+            nbr_sidx=self._tensor(nbr_sidx),
+            nbr_mask=mask_t,
+            nbr_rev=rev_t,
+        )
+
+    def _reverse_slots(self, nbr_idx, nbr_off, nbr_mask, idx_t, off_t,
+                       mask_t):
+        """The table's reverse slots on the device, None if asymmetric."""
         rev = reverse_slots_host(nbr_idx, nbr_off, nbr_mask)
         if rev is None:  # table too large for the host int64 key encoding
             from .neighbors_device import reverse_slots
@@ -968,18 +1080,8 @@ class Engine:
                 "asymmetric neighbor table: disabling the reverse-slot "
                 "force backward (plain scatter path)"
             )
-            rev_t = None
-        return ConfigArrays(
-            positions=self._tensor(positions, self.dtype),
-            cell=self._tensor(system.cell, self.dtype),
-            numbers=self._tensor(numbers),
-            atom_mask=self._tensor(atom_mask),
-            nbr_idx=idx_t,
-            nbr_off=off_t,
-            nbr_sidx=self._tensor(nbr_sidx),
-            nbr_mask=mask_t,
-            nbr_rev=rev_t,
-        )
+            return None
+        return rev_t
 
     def update_positions(self, cfg: ConfigArrays, system) -> ConfigArrays:
         """Refresh only positions/cell of a cached config (neighbor table
@@ -1033,6 +1135,15 @@ class Engine:
 
     def predict(self, cfg: ConfigArrays, model: ModelArrays, vscale_atom):
         vs = self._tensor(np.asarray(vscale_atom, dtype=np.float64), self.dtype)
+        if self.mesh is not None:
+            from .parallel.mesh import mesh_pad, sharded_predict
+
+            cfg2, model2, oidx, vs2 = mesh_pad(cfg, model, vs, self.mesh)
+            e, f, w, cov, beta = sharded_predict(
+                cfg2, model2, self.radii_table(), vs2, oidx, self.mesh,
+                self.params, self.exponent, ks=self.kernel_space())
+            npad, mcap = cfg.npad, model.mu.shape[0]
+            return e, f[:npad], w, cov[:npad, :mcap], beta[:npad]
         return predict_fn(cfg, model, self.radii_table(), vs, self.params,
                           self.exponent, ks=self.kernel_space())
 
@@ -1103,23 +1214,42 @@ class Engine:
         ``kernel_block_fn``), "jac" (the descriptor Jacobian,
         ``kernel_block_jac_fn``; the plain dot kernel only) or "auto": the
         JAX package's rule, the Jacobian for the plain dot kernel once
-        m >= 64 while its intermediates stay under ``JAC_BYTES_CAP``."""
+        m >= 64 while its intermediates stay under ``JAC_BYTES_CAP`` (under
+        a mesh, a data shard's: the guard is divided by the shard count)."""
         if method == "auto":
             m = int(model.m_mask.sum())
             nbytes = jac_bytes(cfg.npad, cfg.nbr_idx.shape[1],
                                max(self.nspecies, 1), self.params,
                                cfg.positions.element_size())
+            if self.mesh is not None:
+                nbytes /= self.mesh.shape["data"]
             method = ("jac" if self.plain_kernel and m >= 64
                       and nbytes < self.JAC_BYTES_CAP else "vjp")
+        if method not in ("jac", "vjp"):
+            raise ValueError(f"unknown kernel_block method {method!r}")
+        if method == "jac" and not self.plain_kernel:
+            raise ValueError("the Jacobian route serves the plain dot "
+                             "kernel only (no pair terms, chemical or "
+                             "other kinds)")
+        if self.mesh is not None:
+            from .parallel.mesh import (mesh_pad, sharded_kernel_block,
+                                        sharded_kernel_block_jac)
+
+            cfg2, model2, oidx, _ = mesh_pad(cfg, model, None, self.mesh)
+            if method == "jac":
+                ke, kf, kv = sharded_kernel_block_jac(
+                    cfg2, model2, self.radii_table(), oidx, self.mesh,
+                    self.params, self.exponent)
+            else:
+                ke, kf, kv = sharded_kernel_block(
+                    cfg2, model2, self.radii_table(), oidx, self.mesh,
+                    self.params, self.exponent, batch_size=batch_size,
+                    ks=self.kernel_space())
+            npad, mcap = cfg.npad, model.mu.shape[0]
+            return ke[:mcap], kf[:npad, :, :mcap], kv[..., :mcap]
         if method == "jac":
-            if not self.plain_kernel:
-                raise ValueError("the Jacobian route serves the plain dot "
-                                 "kernel only (no pair terms, chemical or "
-                                 "other kinds)")
             return kernel_block_jac_fn(cfg, model, self.radii_table(),
                                        self.params, self.exponent)
-        if method != "vjp":
-            raise ValueError(f"unknown kernel_block method {method!r}")
         return kernel_block_fn(cfg, model, self.radii_table(), self.params,
                                self.exponent, batch_size=batch_size,
                                ks=self.kernel_space())

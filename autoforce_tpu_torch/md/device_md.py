@@ -25,6 +25,10 @@ chain (NVT).  The Langevin noise of global step ``t`` comes from a
 reproducible however far the host ran ahead of the device.  It cannot
 reproduce ``jax.random``'s numbers.
 
+Under a device mesh (``calc.engine.mesh``, :mod:`..parallel.mesh`) the
+same loop runs with sharded forces (``md_chunk(mesh=...)``): one launch
+of each SOAP kernel per data shard and step.
+
 A Bayesian committee (:class:`..calculator.bcm.BCMActiveCalculator` with
 frozen experts) is served on the card as well (:func:`_committee_e`): the
 descriptors are computed once per step for every expert, so each SOAP
@@ -305,9 +309,12 @@ def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep=1):
 
 
 def _where(flag, new, old):
-    """Elementwise select of a tensor or a tuple of tensors."""
+    """Elementwise select of a tensor or a (nested) tuple of tensors, which
+    may lie on other devices than the flag (a mesh's sharded tables)."""
     if isinstance(new, tuple):
         return tuple(_where(flag, n, o) for n, o in zip(new, old))
+    if new.device != flag.device:
+        flag = flag.to(new.device)
     return torch.where(flag, new, old)
 
 
@@ -460,7 +467,7 @@ def _noise(gen, shape, dtype, seed, step):
 def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
                 friction, skin_half, beta_thresh, nsteps, thermostat,
                 check_beta, seed=0, step0=0, tbl=None, rebuild_fn=None,
-                nhc=None, nrep=1):
+                nhc=None, nrep=1, noise_rows=None):
     """The integrator loop.
 
     ``forces_fn(pos, tbl) -> (e, f, beta_max)`` supplies the physics; the
@@ -473,7 +480,9 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
     ``nrep`` > 1: the rows are that many walkers' blocks of equal size
     (:func:`md_chunk_replicas`); ``seed`` is then a sequence of one noise
     stream per walker, the chain state is (nrep, 3) and ``forces_fn``
-    gives one energy and one beta_max per walker.
+    gives one energy and one beta_max per walker.  ``noise_rows``: the
+    first rows, which alone draw Langevin noise (the rest, a mesh's
+    padding, none).
 
     With ``rebuild_fn`` a skin breach does not end the loop: the table is
     rebuilt from the breached positions (``rebuild_fn(pos) -> (tbl,
@@ -505,6 +514,10 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
             vel.shape)
 
     def noise(it):
+        if noise_rows is not None:
+            xi = _noise(gen, (noise_rows, 3), dtype, seed, step0 + it)
+            return torch.cat([xi, xi.new_zeros(
+                (velocities.shape[0] - noise_rows, 3))])
         if nrep == 1:
             return _noise(gen, velocities.shape, dtype, seed, step0 + it)
         return torch.cat([_noise(gen, (nper, 3), dtype, sd, step0 + it)
@@ -592,6 +605,9 @@ def md_chunk(
     meta_scale=None,  # ActiveMeta bias strength (eV), fused into the step
     meta_vs=None,  # (N,), or (E, N) under a committee: inf / unseen -> 0
     nrep=1,  # walkers stacked in ``cfg`` (md_chunk_replicas)
+    mesh=None,  # a device mesh (parallel.mesh): cfg, model mesh-padded
+    own_idx=None,  # the mesh's row ids (parallel.mesh.mesh_pad)
+    noise_rows=None,  # rows that draw Langevin noise (default: all)
 ):
     """Run up to ``nsteps`` MD steps on the device; early-exit on a skin
     breach or the uncertainty threshold.
@@ -600,16 +616,29 @@ def md_chunk(
     (idx, off, sidx, mask[, rev]) and its build origin, for chaining into
     the next chunk; with ``thermostat="nhc"`` then (nhc_vxi, nhc_xi), the
     chain state for the next chunk.  ``meta_scale`` / ``meta_vs`` bias the
-    surface with ActiveMeta (:func:`_sgpr_forces`)."""
-    cfg_with, tbl0, rebuild_fn = _inloop_table(
-        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep
-    )
-    nimg = nrep if nrep > 1 else None
+    surface with ActiveMeta (:func:`_sgpr_forces`).  With ``mesh`` the
+    forces are sharded (``parallel.mesh.mesh_chunk``, the JAX package's
+    ``sharded_md_chunk``) on inputs padded by ``parallel.mesh.pad_chain``,
+    whose ``noise_rows`` keep the unsharded chain's noise; the table it
+    returns is the whole configuration's."""
+    whole = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_chunk
 
-    def forces_fn(pos, tbl):
-        return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta, ks, mean_e, nimg,
-                            meta_scale, meta_vs)
+        forces_fn, tbl0, rebuild_fn, whole, _ = mesh_chunk(
+            cfg, model, radii, vscale_atom, own_idx, mesh, params, exponent,
+            check_beta, ks, mean_e, meta_scale, meta_vs, rebuild=rebuild,
+            rebuild_cut=rebuild_cut, sidx_atom=sidx_atom, sidx_ok=sidx_ok)
+    else:
+        cfg_with, tbl0, rebuild_fn = _inloop_table(
+            cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep
+        )
+        nimg = nrep if nrep > 1 else None
+
+        def forces_fn(pos, tbl):
+            return _sgpr_forces(pos, cfg_with(tbl), model, radii,
+                                vscale_atom, params, exponent, check_beta,
+                                ks, mean_e, nimg, meta_scale, meta_vs)
 
     nhc = None
     if thermostat == "nhc":
@@ -620,12 +649,12 @@ def md_chunk(
             masses, pos0, float(dt), float(kT), float(friction),
             float(skin_half), float(beta_thresh), int(nsteps), thermostat,
             check_beta, seed=seed, step0=step0, tbl=tbl0,
-            rebuild_fn=rebuild_fn, nhc=nhc, nrep=nrep,
+            rebuild_fn=rebuild_fn, nhc=nhc, nrep=nrep, noise_rows=noise_rows,
         )
     pos, vel, f, e, beta_max, i, tbl, pos0, vxi, xi = out
     ret = (pos, vel, f, e, beta_max, i)
     if rebuild:
-        ret = ret + (tbl, pos0)
+        ret = ret + (tbl if whole is None else whole(tbl), pos0)
     if nhc is not None:
         ret = ret + (vxi, xi)
     return ret
@@ -847,6 +876,16 @@ def new_chain(calc, system, check_beta, committee=None, meta=False):
     )
 
 
+def mesh_chain(chain, mesh):
+    """``chain`` padded to ``mesh`` (``parallel.mesh.pad_chain``), or as it
+    is without one."""
+    if mesh is None:
+        return chain
+    from ..parallel.mesh import pad_chain
+
+    return pad_chain(chain, mesh)
+
+
 def padded_rows(a, npad, like):
     """Host rows ``a`` zero-padded to ``npad`` rows, as a tensor of
     ``like``'s type on its device."""
@@ -868,7 +907,9 @@ class DeviceMD:
     across chunks on the card) or none (NVE).  An ActiveMeta bias
     (``calc.meta``) is fused into the step's energy, on the plain dot
     kernel only; a multi-task calculator with static weights serves its
-    combined surface."""
+    combined surface.  Under ``calc.engine.mesh`` the chunks run sharded
+    (``md_chunk(mesh=...)``), with the same in-loop rebuild: each data
+    shard rebuilds its own rows."""
 
     def __init__(self, system, calc, dt, temperature_K=None, friction=0.01,
                  chunk=50, seed=0, check_beta=None, thermostat="auto",
@@ -911,15 +952,16 @@ class DeviceMD:
         )
         self._stall = 0
         self._committee = {}  # committee_stack's staging across chains
+        self.mesh = getattr(calc.engine, "mesh", None)
 
     def _new_chain(self):
         """Device state of a chain of chunks, from the calculator's
-        current configuration."""
+        current configuration (padded to the mesh under one)."""
         chain = new_chain(self.calc, self.system, self.check_beta,
                           self._committee, meta=self.meta_scale is not None)
         chain["vel"] = padded_rows(self.system.get_velocities(),
                                    chain["cfg"].npad, chain["pos0"])
-        return chain
+        return mesh_chain(chain, self.mesh)
 
     def _nhc_kw(self, like):
         """The chain's masses, dof and device state for the next chunk."""
@@ -981,7 +1023,9 @@ class DeviceMD:
                 sidx_atom=chain["sidx_atom"], sidx_ok=chain["sidx_ok"],
                 seed=self.seed, step0=self.nsteps, ks=chain["ks"],
                 mean_e=chain["mean_e"], meta_scale=self.meta_scale,
-                meta_vs=chain["meta_vs"], **nhc_kw,
+                meta_vs=chain["meta_vs"], mesh=self.mesh,
+                own_idx=chain.get("oidx"),
+                noise_rows=chain.get("noise_rows"), **nhc_kw,
             )
             pos, vel, f, e, beta_max, i = out[:6]
             if inloop:

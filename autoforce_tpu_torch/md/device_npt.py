@@ -35,7 +35,7 @@ from ..engine import _total_cov, device_fetch
 from ..neighbors_device import det3
 from .device_md import (_beta_max, _committee_e, _floor_max, _go, _graft,
                         _inloop_table, _nhc_half, _where, check_plain_surface,
-                        drive, new_chain, padded_rows)
+                        drive, mesh_chain, new_chain, padded_rows)
 from .nose_hoover import _as_mask
 
 # scaling and squaring of expm_sym: the Taylor polynomial's degree, the
@@ -85,14 +85,21 @@ def moving_cell_breach(pos, p0, cell, tcell, omax, amask, skin_half):
     return disp + 0.5 * drift >= skin_half
 
 
-def moving_skin_table(amask, skin_half, rebuild_fn=None, rebuild_cut=None):
+def _table_omax(tbl):
+    return offsum_max(tbl[1], tbl[3], torch.float64)
+
+
+def moving_skin_table(amask, skin_half, rebuild_fn=None, rebuild_cut=None,
+                      omax_of=_table_omax):
     """(breach, with_rebuild) of a loop under a moving cell (NPT,
     variable-cell FIRE): ``breach(pos, p0, cell, tcell, omax)`` is
     :func:`moving_cell_breach`; ``with_rebuild(pos, cell, tbl, p0, tcell,
     omax)`` gives the table, origin, table cell, lever arm and ``ok`` after
     a (masked) rebuild at (pos, cell) — one that is not due or fails
     (bucket overflow, MIC violation for the current cell) keeps the old
-    ones, and drops ``ok`` only when it failed."""
+    ones, and drops ``ok`` only when it failed.  ``omax_of(tbl)``: a
+    table's lever arm (a mesh's sharded table: the max over its
+    shards)."""
 
     def breach(pos, p0, cell, tcell, omax):
         return moving_cell_breach(pos, p0, cell, tcell, omax, amask,
@@ -106,8 +113,8 @@ def moving_skin_table(amask, skin_half, rebuild_fn=None, rebuild_cut=None):
         return dict(tbl=_where(take, new_tbl, tbl),
                     pos0=torch.where(take, pos, p0),
                     tcell=torch.where(take, cell, tcell),
-                    omax=torch.where(take, offsum_max(new_tbl[1], new_tbl[3],
-                                                      omax.dtype), omax),
+                    omax=torch.where(take, omax_of(new_tbl).to(omax.dtype),
+                                     omax),
                     ok=~hit | rok)
 
     return breach, with_rebuild
@@ -211,6 +218,8 @@ def md_chunk_npt(
     offmax=None,  # max Sum|off| of the incoming table
     ks=None,  # the engine's kernel space (Engine.kernel_space())
     mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
+    mesh=None,  # a device mesh (parallel.mesh): cfg, model mesh-padded
+    own_idx=None,  # the mesh's row ids (parallel.mesh.mesh_pad)
 ):
     """Up to ``nsteps`` MTK NPT steps on the device; early exit on a skin
     breach or an uncertainty trip.  The exact Trotter splitting of
@@ -218,16 +227,30 @@ def md_chunk_npt(
     flexible-cell MTK with ``aniso=True``.  Returns (pos, vel, cell, f, e,
     beta_max, ndone, nhc_vxi, nhc_xi, bch_vxi, bch_xi, vg), with
     ``rebuild=True`` followed by (tbl, pos0, tbl_cell, offmax) for
-    chaining."""
+    chaining.  With ``mesh``: forces and virial from one backward of the
+    mesh-summed energy (``parallel.mesh.mesh_chunk``, the JAX package's
+    ``sharded_npt_chunk``), a rebuilt table's lever arm the max over the
+    shards, the table returned the whole configuration's."""
     dtype = cfg.positions.dtype
-    cfg_with, tbl0, rebuild_fn = _inloop_table(
-        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
-    )
+    whole, omax_of = None, _table_omax
+    if mesh is not None:
+        from ..parallel.mesh import mesh_chunk
 
-    def forces_fn(pos, cell, tbl):
-        return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
-                                   vscale_atom, params, exponent, check_beta,
-                                   aniso=aniso, ks=ks, mean_e=mean_e)
+        forces_fn, tbl0, rebuild_fn, whole, omax_of = mesh_chunk(
+            cfg, model, radii, vscale_atom, own_idx, mesh, params, exponent,
+            check_beta, ks, mean_e, virial=True, aniso=aniso,
+            rebuild=rebuild, rebuild_cut=rebuild_cut, sidx_atom=sidx_atom,
+            sidx_ok=sidx_ok)
+    else:
+        cfg_with, tbl0, rebuild_fn = _inloop_table(
+            cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
+        )
+
+        def forces_fn(pos, cell, tbl):
+            return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model,
+                                       radii, vscale_atom, params, exponent,
+                                       check_beta, aniso=aniso, ks=ks,
+                                       mean_e=mean_e)
 
     if tbl_cell is None:
         tbl_cell = cfg.cell  # host build: cfg.cell IS the table cell
@@ -245,29 +268,32 @@ def md_chunk_npt(
             float(nhc_dof), torch.stack([nhc_vxi, bch_vxi]),
             torch.stack([nhc_xi, bch_xi]), vg, aniso, mask, check_beta,
             tbl_cell, offmax, tbl0=tbl0, rebuild_fn=rebuild_fn,
-            rebuild_cut=rebuild_cut,
+            rebuild_cut=rebuild_cut, omax_of=omax_of,
         )
     out = (st["pos"], st["vel"], st["cell"], st["f"], st["e"], st["beta"],
            st["i"], st["vxi"][0], st["xi"][0], st["vxi"][1], st["xi"][1],
            st["vg"])
     if rebuild:
-        out = out + (st["tbl"], st["pos0"], st["tcell"], st["omax"])
+        tbl = st["tbl"] if whole is None else whole(st["tbl"])
+        out = out + (tbl, st["pos0"], st["tcell"], st["omax"])
     return out
 
 
 def _npt_loop(forces_fn, positions, amask, velocities, masses, pos0, cell0,
               dt, kT, p_ext, W, skin_half, beta_thresh, nsteps, Q2, dof2,
               nhc_dof, vxi2, xi2, vg, aniso, mask, check_beta, tbl_cell,
-              offmax, tbl0=None, rebuild_fn=None, rebuild_cut=None):
+              offmax, tbl0=None, rebuild_fn=None, rebuild_cut=None,
+              omax_of=_table_omax):
     """The MTK NPT loop.  ``forces_fn(pos, cell, tbl) -> (e, f, deps,
     beta_max)`` supplies the physics; ``rebuild_fn(pos, cell) -> (tbl,
-    ok)`` enables in-loop table rebuilds under the moving cell.  The
+    ok)`` enables in-loop table rebuilds under the moving cell
+    (``omax_of``: :func:`moving_skin_table`).  The
     particle and cell chains are stacked on a leading axis (``Q2``,
     ``dof2``, ``vxi2``, ``xi2``: particle row 0, cell row 1) so that both
     run in the same launches.  Returns the final state dict."""
     eye = torch.eye(3, dtype=positions.dtype, device=positions.device)
     breach, with_rebuild = moving_skin_table(amask, skin_half, rebuild_fn,
-                                             rebuild_cut)
+                                             rebuild_cut, omax_of)
 
     def ke2(vel):
         return (masses * vel * vel * amask).sum()
@@ -372,8 +398,9 @@ class DeviceNPT:
     bucket overflows and MIC violations.  Args mirror
     md/nose_hoover.MTKNPT, including the default ``isotropic=False``
     (full flexible-cell MTK; ``mask`` gates strain components).  A
-    committee calculator is served on the card as in DeviceMD.  The
-    device mesh is not ported yet."""
+    committee calculator is served on the card as in DeviceMD.  Under
+    ``calc.engine.mesh`` the chunks run sharded (``md_chunk_npt(mesh=...)``:
+    forces and virial from one backward of the mesh-summed energy)."""
 
     def __init__(self, system, calc, dt, temperature_K, pressure_GPa=0.0,
                  tdamp=None, pdamp=None, bulk_modulus_GPa=None, chunk=50,
@@ -424,6 +451,7 @@ class DeviceNPT:
         self._dev_state = None
         self._stall = 0
         self._committee = {}  # committee_stack's staging across chains
+        self.mesh = getattr(calc.engine, "mesh", None)
 
     def _chain_masses(self):
         Q = np.full(3, self.kT * self.tdamp**2)
@@ -448,7 +476,8 @@ class DeviceNPT:
         from ..neighbors_device import device_rebuild_ok
 
         calc, system = self.calc, self.system
-        chain = new_chain(calc, system, self.check_beta, self._committee)
+        chain = mesh_chain(new_chain(calc, system, self.check_beta,
+                                     self._committee), self.mesh)
         cfg = chain["cfg"]
         like = chain["pos0"]
 
@@ -549,7 +578,8 @@ class DeviceNPT:
                 mask=chain["mask"],
                 bch_dof=None if self.isotropic else self.ncell,
                 tbl_cell=chain["tbl_cell"], offmax=chain["offmax"],
-                ks=chain["ks"], mean_e=chain["mean_e"], **inloop_kw,
+                ks=chain["ks"], mean_e=chain["mean_e"], mesh=self.mesh,
+                own_idx=chain.get("oidx"), **inloop_kw,
             )
             pos, vel, cell, f, e, beta_max, i = out[:7]
             self._dev_state = out[7:12]

@@ -19,7 +19,9 @@ space faster than one walker.
 
 Walker r's Langevin noise is the stream ``seed + r`` of
 :func:`..md.device_md._noise`: with the same model it reproduces
-``DeviceMD(seed=seed + r)``.
+``DeviceMD(seed=seed + r)``.  The ensemble runs on the engine's device;
+an ``engine.mesh`` is ignored here, as in the JAX package (a mesh shards
+the atoms of one system, ``parallel/mesh.py``).
 """
 
 from __future__ import annotations

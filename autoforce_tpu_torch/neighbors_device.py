@@ -54,7 +54,8 @@ def inv3(m):
     return adj / det3(m)[..., None, None]
 
 
-def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
+def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512,
+                          row_ids=None, row_mask=None):
     """Rebuild the padded neighbor table on the device.
 
     Args:
@@ -66,6 +67,11 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
             pairs.
         cutoff: scalar (rc + skin), float or 0-d tensor.
         kpad: neighbor-slot count of the existing table bucket.
+        row_ids: optional (n,) int64 atom ids to build rows for (a mesh
+            shard rebuilds its own rows; the candidates j still span all
+            N positions).  Default: all N rows.  Not with (R, N, 3).
+        row_mask: (n,) bool validity of the ``row_ids`` rows (default
+            ``atom_mask[row_ids]``).
     Returns:
         (idx (N, kpad) i32, off (N, kpad, 3) i8, mask (N, kpad) bool,
          kmax (0-d i64 tensor), off_over (0-d bool tensor)), each table
@@ -82,11 +88,18 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512):
     frac = positions @ inv3(cell)  # (R, N, 3), possibly unwrapped
     cut2 = cutoff**2  # a float or a 0-d tensor: no host-to-card copy
     rows = torch.arange(N, dtype=torch.int32, device=dev)
+    if row_ids is None:
+        own, fown, mown = rows, frac, atom_mask
+    else:
+        own = row_ids.to(torch.int32)
+        fown = frac[:, row_ids]
+        mown = (atom_mask[:, row_ids] if row_mask is None
+                else row_mask[None])
     idx_out, off_out, msk_out, counts, overs = [], [], [], [], []
-    for lo in range(0, N, block):
-        fi = frac[:, lo:lo + block]
-        ri = rows[lo:lo + block]
-        mi = atom_mask[:, lo:lo + block]
+    for lo in range(0, own.shape[0], block):
+        fi = fown[:, lo:lo + block]
+        ri = own[lo:lo + block]
+        mi = mown[:, lo:lo + block]
         B = fi.shape[1]
         g = frac[:, None, :, :] - fi[:, :, None, :]  # (R, B, N, 3) f_j - f_i
         off = -torch.round(g)  # round half to even, as rint

@@ -29,9 +29,10 @@ import torch
 
 from ..engine import device_fetch
 from ..md.device_md import (_go, _graft, _inloop_table, _sgpr_forces,
-                            check_plain_surface, drive, new_chain,
-                            padded_rows, skin_table)
-from ..md.device_npt import _sgpr_forces_virial, moving_skin_table
+                            check_plain_surface, drive, mesh_chain,
+                            new_chain, padded_rows, skin_table)
+from ..md.device_npt import (_sgpr_forces_virial, _table_omax,
+                             moving_skin_table)
 from ..neighbors_device import det3, inv3
 
 
@@ -96,19 +97,34 @@ def fire_chunk(
     sidx_ok=None,
     ks=None,  # the engine's kernel space (Engine.kernel_space())
     mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
+    mesh=None,  # a device mesh (parallel.mesh): cfg, model mesh-padded
+    own_idx=None,  # the mesh's row ids (parallel.mesh.mesh_pad)
 ):
     """Up to ``nsteps`` FIRE steps on the device; early exit on
     convergence (fmax < fmax_target, checked before stepping like
     Optimizer.run), an uncertainty trip, or an unserviceable skin breach.
     Returns (pos, v, f, e, beta_max, fmax, dt, a, n_uphill, ndone[, tbl,
-    pos0])."""
-    cfg_with, tbl0, rebuild_fn = _inloop_table(
-        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
-    )
+    pos0]).  With ``mesh`` the forces are sharded
+    (``parallel.mesh.mesh_chunk``, the JAX package's
+    ``sharded_fire_chunk``), the table returned the whole
+    configuration's."""
+    whole = None
+    if mesh is not None:
+        from ..parallel.mesh import mesh_chunk
 
-    def forces_fn(pos, tbl):
-        return _sgpr_forces(pos, cfg_with(tbl), model, radii, vscale_atom,
-                            params, exponent, check_beta, ks, mean_e)
+        forces_fn, tbl0, rebuild_fn, whole, _ = mesh_chunk(
+            cfg, model, radii, vscale_atom, own_idx, mesh, params, exponent,
+            check_beta, ks, mean_e, rebuild=rebuild, rebuild_cut=rebuild_cut,
+            sidx_atom=sidx_atom, sidx_ok=sidx_ok)
+    else:
+        cfg_with, tbl0, rebuild_fn = _inloop_table(
+            cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
+        )
+
+        def forces_fn(pos, tbl):
+            return _sgpr_forces(pos, cfg_with(tbl), model, radii,
+                                vscale_atom, params, exponent, check_beta,
+                                ks, mean_e)
 
     with torch.no_grad():
         st = _fire_loop(
@@ -120,7 +136,8 @@ def fire_chunk(
     out = (st["pos"], st["v"], st["f"], st["e"], st["beta"], st["fmax"],
            st["dt"], st["a"], st["nu"], st["i"])
     if rebuild:
-        out = out + (st["tbl"], st["pos0"])
+        out = out + (st["tbl"] if whole is None else whole(st["tbl"]),
+                     st["pos0"])
     return out
 
 
@@ -206,6 +223,8 @@ def fire_cell_chunk(
     sidx_ok=None,
     ks=None,
     mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
+    mesh=None,  # a device mesh (parallel.mesh): cfg, model mesh-padded
+    own_idx=None,  # the mesh's row ids (parallel.mesh.mesh_pad)
 ):
     """Variable-cell FIRE on the device: the exact opt/filters.
     UnitCellFilter + opt/fire.FIRE composition — positions in the
@@ -216,15 +235,28 @@ def fire_cell_chunk(
     moving cell uses the NPT loop's displacement + image-drift metric.
     cfg.positions are REAL coordinates (pos_und @ deform.T).  Returns
     (pos_real, v, v_def, deform, f, e, beta_max, fmax, dt, a, n_uphill,
-    ndone[, tbl, pos0, tbl_cell, offmax])."""
-    cfg_with, tbl0, rebuild_fn = _inloop_table(
-        cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
-    )
+    ndone[, tbl, pos0, tbl_cell, offmax]).  With ``mesh`` the forces and
+    stress are sharded (``parallel.mesh.mesh_chunk``, the JAX package's
+    ``sharded_fire_cell_chunk``), a rebuilt table's lever arm the max over
+    the shards, the table returned the whole configuration's."""
+    whole, omax_of = None, _table_omax
+    if mesh is not None:
+        from ..parallel.mesh import mesh_chunk
 
-    def forces_fn(pos, cell, tbl):
-        return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model, radii,
-                                   vscale_atom, params, exponent, check_beta,
-                                   aniso=True, ks=ks, mean_e=mean_e)
+        forces_fn, tbl0, rebuild_fn, whole, omax_of = mesh_chunk(
+            cfg, model, radii, vscale_atom, own_idx, mesh, params, exponent,
+            check_beta, ks, mean_e, virial=True, aniso=True, rebuild=rebuild,
+            rebuild_cut=rebuild_cut, sidx_atom=sidx_atom, sidx_ok=sidx_ok)
+    else:
+        cfg_with, tbl0, rebuild_fn = _inloop_table(
+            cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok
+        )
+
+        def forces_fn(pos, cell, tbl):
+            return _sgpr_forces_virial(pos, cell, cfg_with(tbl), model,
+                                       radii, vscale_atom, params, exponent,
+                                       check_beta, aniso=True, ks=ks,
+                                       mean_e=mean_e)
 
     with torch.no_grad():
         st = _fire_cell_loop(
@@ -233,7 +265,7 @@ def fire_cell_chunk(
             float(skin_half), float(fmax_target), float(beta_thresh),
             int(nsteps), float(cell_factor), float(pressure), fire,
             check_beta, tbl0=tbl0, rebuild_fn=rebuild_fn,
-            rebuild_cut=rebuild_cut,
+            rebuild_cut=rebuild_cut, omax_of=omax_of,
         )
     amask = cfg.atom_mask[:, None]
     deform_f = st["defc"] / float(cell_factor)
@@ -241,7 +273,8 @@ def fire_cell_chunk(
     out = (pos_real, st["v"], st["vd"], deform_f, st["fu"], st["e"],
            st["beta"], st["fmax"], st["dt"], st["a"], st["nu"], st["i"])
     if rebuild:
-        out = out + (st["tbl"], st["pos0"], st["tcell"], st["omax"])
+        tbl = st["tbl"] if whole is None else whole(st["tbl"])
+        out = out + (tbl, st["pos0"], st["tcell"], st["omax"])
     return out
 
 
@@ -249,14 +282,15 @@ def _fire_cell_loop(forces_fn, positions, amask, v, v_def, deform, cell0,
                     pos0, tbl_cell, offmax, dt, a, n_uphill, skin_half,
                     fmax_target, beta_thresh, nsteps, cell_factor, pressure,
                     fire, check_beta, tbl0=None, rebuild_fn=None,
-                    rebuild_cut=None):
+                    rebuild_cut=None, omax_of=_table_omax):
     """The variable-cell FIRE loop.  ``forces_fn(pos, cell, tbl) -> (e,
     f_real, deps = vol*stress, beta_max)``; ``rebuild_fn(pos, cell) ->
-    (tbl, ok)`` enables in-loop table rebuilds.  Returns the final state
-    dict (``pu``: undeformed positions, ``defc``: deform * cell_factor)."""
+    (tbl, ok)`` enables in-loop table rebuilds (``omax_of``:
+    ``md.device_npt.moving_skin_table``).  Returns the final state dict
+    (``pu``: undeformed positions, ``defc``: deform * cell_factor)."""
     eye = torch.eye(3, dtype=positions.dtype, device=positions.device)
     breach, with_rebuild = moving_skin_table(amask, skin_half, rebuild_fn,
-                                             rebuild_cut)
+                                             rebuild_cut, omax_of)
 
     def frame(pu, defc):
         """Real positions and cell of the optimization vector."""
@@ -327,8 +361,9 @@ class DeviceFIRE:
     geometry where the covloss threshold trips, the host samples, and
     relaxation resumes on the updated model.  ``cell=True`` relaxes the
     cell too (the opt/filters.UnitCellFilter composition on the card).
-    A committee calculator is served on the card as in DeviceMD.  The
-    device mesh is not ported yet."""
+    A committee calculator is served on the card as in DeviceMD.  Under
+    ``calc.engine.mesh`` the chunks run sharded (``fire_chunk`` /
+    ``fire_cell_chunk`` with ``mesh=``)."""
 
     def __init__(self, system, calc, dt=0.1, maxstep=0.2, dtmax=1.0, nmin=5,
                  finc=1.1, fdec=0.5, astart=0.1, fa=0.99, logfile=None,
@@ -362,6 +397,7 @@ class DeviceFIRE:
         self._v = None
         self._stall = 0
         self._committee = {}  # committee_stack's staging across chains
+        self.mesh = getattr(calc.engine, "mesh", None)
 
     def log(self, fmax, e):
         if self.logfile:
@@ -373,7 +409,8 @@ class DeviceFIRE:
         from ..neighbors_device import device_rebuild_ok
 
         calc, system = self.calc, self.system
-        chain = new_chain(calc, system, self.check_beta, self._committee)
+        chain = mesh_chain(new_chain(calc, system, self.check_beta,
+                                     self._committee), self.mesh)
         cfg = chain["cfg"]
         like = chain["pos0"]
         # (re)build the FIRE velocity at the chain's padding: a sampling
@@ -488,7 +525,8 @@ class DeviceFIRE:
                       chain["beta_thresh"], n)
             kw = dict(params=eng.params, exponent=eng.exponent,
                       check_beta=self.check_beta, ks=chain["ks"],
-                      mean_e=chain["mean_e"], **inloop_kw)
+                      mean_e=chain["mean_e"], mesh=self.mesh,
+                      own_idx=chain.get("oidx"), **inloop_kw)
             if self.cell:
                 out = fire_cell_chunk(
                     chain["cfg"], chain["ma"], chain["radii"], chain["vs"],

@@ -40,18 +40,47 @@ from .device_fire import _fire_update
 
 
 def band_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
-                check_beta, ks=None, mean_e=None):
+                check_beta, ks=None, mean_e=None, mesh=None, own_idx=None):
     """(e (R,), f (R, N, 3), beta_max (R,)) of R images of N rows each,
     ``pos`` (R, N, 3), stacked in ``cfg`` (:func:`stack_images`): one
     forward and one backward kernel launch for all of them; ``ks``: the
     engine's kernel space.  With ``mean_e`` the model is a committee:
     each image's energy is its weighted committee energy and its beta
-    the committee floor."""
-    R, N = pos.shape[:2]
-    e, f, bmax = _sgpr_forces(pos.reshape(R * N, 3), cfg, model, radii,
-                              vscale_atom, params, exponent, check_beta, ks,
-                              mean_e, nimg=R)
-    return e, f.reshape(R, N, 3), bmax
+    the committee floor.  ``mesh``: :func:`band_fn`'s."""
+    return band_fn(cfg, model, radii, vscale_atom, params, exponent,
+                   check_beta, ks, mean_e, pos.shape[0], mesh, own_idx)(pos)
+
+
+def band_fn(cfg, model, radii, vscale_atom, params, exponent, check_beta,
+            ks=None, mean_e=None, nimg=1, mesh=None, own_idx=None):
+    """:func:`band_forces` of ``nimg`` images as a function of their
+    positions.  With ``mesh`` the images are mesh-padded
+    (``parallel.mesh.pad_images_for_mesh``) and every image's atoms are
+    sharded alike over 'data', laid out once here
+    (``parallel.mesh.mesh_chunk``): each evaluation launches each SOAP
+    kernel once per data shard."""
+    if mesh is None:
+        def forces(pos):
+            R, N = pos.shape[:2]
+            e, f, bmax = _sgpr_forces(pos.reshape(R * N, 3), cfg, model,
+                                      radii, vscale_atom, params, exponent,
+                                      check_beta, ks, mean_e, nimg=R)
+            return e, f.reshape(R, N, 3), bmax
+
+        return forces
+    from ..parallel.mesh import mesh_chunk
+
+    fn = mesh_chunk(cfg, model, radii, vscale_atom, own_idx, mesh, params,
+                    exponent, check_beta, ks, mean_e, nimg=nimg).forces_fn
+
+    def forces(pos):
+        R, N = pos.shape[:2]
+        e, f, bmax = fn(pos.reshape(R * N, 3))
+        if R == 1:
+            e, bmax = e[None], bmax[None]
+        return e, f.reshape(R, N, 3), bmax
+
+    return forces
 
 
 def neb_chunk(
@@ -79,16 +108,19 @@ def neb_chunk(
     climb=False,
     ks=None,  # the engine's kernel space (Engine.kernel_space())
     mean_e=None,  # (E,) expert mean energies: ``model`` is a committee
+    mesh=None,  # a device mesh (parallel.mesh): images mesh-padded
+    own_idx=None,  # one image's row ids (pad_images_for_mesh)
 ):
     """Up to ``nsteps`` band-FIRE iterations on the device; early exit on
     band convergence (max interior |F_neb| < fmax_target, checked before
     the step like Optimizer.run), an uncertainty trip on any image, or a
     skin breach on any image.  Returns (pos, v, f_neb, e (R,), beta_max,
-    fmax, dt, a, n_uphill, ndone)."""
-
-    def forces_int(p):
-        return band_forces(p, cfg, model, radii, vscale_atom, params,
-                           exponent, check_beta, ks, mean_e)
+    fmax, dt, a, n_uphill, ndone).  With ``mesh`` the band is sharded
+    once per chunk (:func:`band_fn`, the JAX package's
+    ``sharded_neb_chunk``)."""
+    forces_int = band_fn(cfg, model, radii, vscale_atom, params, exponent,
+                         check_beta, ks, mean_e, pos.shape[0] - 2, mesh,
+                         own_idx)
 
     amask = cfg.atom_mask[: pos.shape[1], None]  # images share the system
     with torch.no_grad():
@@ -185,8 +217,10 @@ class DeviceNEB:
     Optimizer.run contract) and returns True on convergence; ``barrier()``
     then evaluates max(E) - E[0] through the calculator.  The images must
     share atoms and species; each keeps its own cell.  A committee
-    calculator is served on the card, its weights taken per image.  The
-    device mesh is not ported yet.
+    calculator is served on the card, its weights taken per image.  Under
+    ``calc.engine.mesh`` every image's atoms are sharded alike over the
+    mesh's 'data' axis (``neb_chunk(mesh=...)``), the images still
+    stacked as rows.
     """
 
     def __init__(self, images, calc, k=0.1, climb=False, dt=0.05,
@@ -223,6 +257,7 @@ class DeviceNEB:
         self._kpad = 0
         self._stall = 0
         self._committee = {}  # committee_stack's staging across chains
+        self.mesh = getattr(calc.engine, "mesh", None)
 
     def _host_eval(self):
         """Evaluate every image through the full calculator (host NEB
@@ -265,7 +300,15 @@ class DeviceNEB:
             vs = np.where(np.isfinite(vs), vs, VS_UNSEEN)
             vs = np.concatenate([vs, np.zeros(self._npad - n0)])
         R = len(self.images)
-        vs_t = torch.as_tensor(vs, dtype=dtype, device=dev)
+        own_idx = None
+        if self.mesh is not None:  # every image's rows split evenly
+            from ..parallel.mesh import pad_images_for_mesh
+
+            cfgs, ma, own_idx, vs_t = pad_images_for_mesh(
+                cfgs, ma, vs, self.mesh, dtype, committee=bool(models))
+        else:
+            vs_t = torch.as_tensor(vs, dtype=dtype, device=dev)
+        npad = cfgs[0].npad
 
         def vs_rows(k):  # the per-atom rows of k stacked images
             return vs_t.repeat(*([1] * (vs_t.dim() - 1)), k)
@@ -276,8 +319,9 @@ class DeviceNEB:
         with torch.no_grad():
             e_end, _, b_end = band_forces(
                 pos[[0, -1]], ends, ma, eng.radii_table(), vs_rows(2),
-                eng.params, eng.exponent, self.check_beta, ks, mean_e)
-        varr = np.zeros((R, self._npad, 3))
+                eng.params, eng.exponent, self.check_beta, ks, mean_e,
+                self.mesh, own_idx)
+        varr = np.zeros((R, npad, 3))
         if self._v is not None:
             varr[:, :n0] = self._v
         return dict(
@@ -294,6 +338,7 @@ class DeviceNEB:
             pos0=pos,
             beta_thresh=calc.ediff if self.check_beta else np.inf,
             ks=ks,
+            oidx=own_idx,
         )
 
     def _sync_host(self, pos):
@@ -375,6 +420,7 @@ class DeviceNEB:
                 self.k, self.params, params=eng.params,
                 exponent=eng.exponent, check_beta=self.check_beta,
                 climb=self.climb, ks=chain["ks"], mean_e=chain["mean_e"],
+                mesh=self.mesh, own_idx=chain["oidx"],
             )
             # one host read for every boundary scalar
             dtc, a, nu, i_h, fm_h, bm_h = (float(x) for x in device_fetch(

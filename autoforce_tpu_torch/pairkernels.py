@@ -71,11 +71,16 @@ def _select(term: PairTerm, zi, zj):
 
 
 def config_pair_mask(term: PairTerm, numbers, nbr_numbers, nbr_idx, nbr_off,
-                     nbr_mask):
-    """Species selection + dedup for all LCEs of a configuration (rows
-    are atoms 0..n-1)."""
+                     nbr_mask, own_idx=None):
+    """Species selection + dedup for all LCEs of a configuration.
+    ``own_idx``: the atom of each table row (a mesh shard's rows, whose
+    ``nbr_idx`` hold whole-configuration indices); None: rows are atoms
+    0..n-1."""
     sel = _select(term, numbers[:, None], nbr_numbers)
-    row = torch.arange(numbers.shape[0], device=numbers.device)[:, None]
+    if own_idx is None:
+        row = torch.arange(numbers.shape[0], device=numbers.device)[:, None]
+    else:
+        row = own_idx[:, None]
     dedup = (nbr_idx > row) | ((nbr_idx == row) & _lex3(nbr_off))
     return sel & nbr_mask & dedup
 

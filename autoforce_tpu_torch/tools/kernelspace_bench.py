@@ -97,16 +97,22 @@ def learn(engine, wall_cap=60.0, step_cap=400, record_cap=None,
             on_start()
         t0 = time.time()
         update = calc.update
+        last = dict(update_s=0.0, refused=0)
 
         def capped_update(*a, **k):
-            # past the wall cap no update starts: the run of steps in
-            # flight then ends within its remaining steps, and the cap
-            # overshoots by at most the update in flight (the chemical +
-            # pair growth's updates grow to minutes each as its M nears
-            # singular, ROADMAP 3.1)
-            if time.time() - t0 > wall_cap:
+            # no update starts that the last one's duration says would end
+            # past the wall cap: the chemical + pair growth's updates grow
+            # to tens of seconds each as its M nears singular (ROADMAP
+            # 3.1), and one in flight at the cap once ran it 43 s over.
+            # The cap overshoots by at most one update's growth over the
+            # one before it, and the steps in flight
+            if time.time() - t0 + last["update_s"] > wall_cap:
+                last["refused"] += 1
                 return 0, 0
-            return update(*a, **k)
+            t1 = time.time()
+            out = update(*a, **k)
+            last["update_s"] = time.time() - t1
+            return out
 
         calc.update = capped_update
         steps, exit_reason = 0, "step_cap"
@@ -130,6 +136,7 @@ def learn(engine, wall_cap=60.0, step_cap=400, record_cap=None,
             ndata=calc.size[0], m=calc.size[1],
             fp_calls=calc.event_counts["fp_calls"],
             updates=calc.event_counts["updates"],
+            updates_refused=last["refused"], last_update_s=last["update_s"],
             kernel_hpo_runs=calc.event_counts["kernel_hpo"],
             kernel_hpo_moved=calc.event_counts["kernel_hpo_moved"],
             f_mae_vs_oracle=f_mae,

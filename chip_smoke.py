@@ -162,25 +162,48 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    serving calculator and a stand-in LAMMPS handle, 20 callbacks in
    ``metal`` units: the pushed energy and forces as ``calculate``'s
    (1e-6 of the largest value), one launch of each kernel per callback.
+12. The device mesh (run right after phase 11; the workloads of
+   ``autoforce_tpu_torch.tools.mesh_checks``): a 2x2 ('data', 'model')
+   mesh over the visible cards in turn (one card: ``cuda:0`` four times).
+   (a) ``Engine.predict`` under the mesh against without it, both float32
+   through the kernels (``mesh_checks.MESH_*_TOL``), and against the
+   float64 reference at the bench.py:412 bars; (b) ``kernel_block`` on the
+   column and Jacobian routes against the unsharded call (``KB_*`` /
+   ``JAC_*``); (c) ``DeviceMD`` under the mesh: its first evaluation
+   against the unsharded one, steps/s, busy share and kernels per step
+   beside the unsharded driver's, every force evaluation launching each
+   kernel once per data shard, its first chunk under the sync check and
+   its breach reads counted; (d) ``DeviceNPT``, ``DeviceFIRE`` (both
+   cells) and ``DeviceNEB`` likewise (first evaluation, finite, launches
+   per evaluation); (e) phase 9's committee and the fused ActiveMeta bias
+   under the mesh; (f) ``ActiveCalculator(mesh=...)`` learning the
+   flagship for ``MESH_CAPS["learn_wall_cap"]`` s, its model's predict
+   under the mesh against without; (g) ``cl.md`` with ``mesh =
+   make_mesh(...)`` in ARGS; (h) ``parallel.mesh_bench`` at 1008 atoms:
+   the sharded step against ``md_chunk``.  Both kernels are then checked
+   at one data shard's rows, timed in phase 6.
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
    band's stacked rows, the learning path's staging and kernel_block
    rows, the Jacobian route's one-hot rows, the committee band's rows,
-   the replica ensemble's stacked rows and the multi-task growth rows;
+   the replica ensemble's stacked rows, the multi-task growth rows and
+   one mesh data shard's rows;
    each plain version timed once, three calls in one traced window); a
    profiler breakdown of the MD step.
 
 Each phase logs its wall time; the whole script is held to 1000 s on an
 H100 (its time limit is 1200 s).  Before the last lines come JSON objects
 with each phase's numbers (``drivers``, ``otf``, ``kernel_space``,
-``committee``, ``replicas_meta_multitask_parametric``, ``offline_oracle``);
+``committee``, ``replicas_meta_multitask_parametric``, ``offline_oracle``,
+``mesh``);
 the line before the card's is one JSON object with every kernel's numbers
 (launches split by path: serving MD, OTF learning, each structure driver,
 each kernel-space path, each committee path, the replica ensemble, the
 fused and host metadynamics, multi-task growth and serving, and the
-offline paths: socket learning, train, test, build, shrink, LAMMPS); the
-last line is
+offline paths: socket learning, train, test, build, shrink, LAMMPS, and
+the mesh paths: predict, kernel_block, MD, NPT, FIRE, FIRE cell, NEB,
+committee, ActiveMeta, learning, cl.md, mesh_bench); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -239,9 +262,9 @@ KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=20,
 # step counts (bench.py measure_otf), with wall caps that keep the whole
 # script inside its time limit: growth ends by m >= 512 in under a minute
 # on an H100, production (about 0.3 steps/s while the model still grows)
-# gets 6 minutes, long enough to reach max_inducing
+# gets 5 1/4 minutes (6 until phase 12, the mesh, took 45 s of them)
 OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
-                prod_wall_cap=360.0)
+                prod_wall_cap=315.0)
 # the committee phase (9): the growth stage's wall cap and each driver's
 # steps; the phase's budget is 150 s, the script's ceiling 1000 s
 BCM_CAPS = dict(max_inducing=256, max_data=8, grow_wall_cap=45.0,
@@ -265,6 +288,11 @@ ENS_CAPS = dict(replicas=16, rep_chunk=400, rep_warmup=150, rep_steps=300,
 # (training 37.5 s, the shrink 25.1 s), on six 43.7-46.7 s (PERF.md)
 OFF_CAPS = dict(socket_checks=3, init_samples=2, frames=6, every=25,
                 shrink_by=2, shrink_candidates=8, lmp_callbacks=20)
+# phase 12, the mesh: the learning check's wall cap (15 s at most; about
+# 8 OTF chunks of 20 steps on an H100), cl.md's steps and
+# mesh_bench's timed steps; the phase's budget is 45 s, paid for by OTF
+# production's wall cap (360 -> 315 s)
+MESH_CAPS = dict(learn_wall_cap=12.0, cl_steps=40, bench_steps=100)
 
 
 def log(*a):
@@ -1224,7 +1252,9 @@ def phase_kernel_space(card):
     nat = len(s_d)
     log(f"chemical + pair learning [{card}]: {out_d['steps']} steps in "
         f"{out_d['wall_s']:.1f} s, ended by {out_d['exit']}; (ndata, m) = "
-        f"({out_d['ndata']}, {out_d['m']}), pair bucket {eng_d.pair_kx}; force "
+        f"({out_d['ndata']}, {out_d['m']}), pair bucket {eng_d.pair_kx}; "
+        f"{out_d['updates']} updates, the last {out_d['last_update_s']:.1f} "
+        f"s, {out_d['updates_refused']} refused at the cap; force "
         f"MAE vs the oracle {out_d['f_mae_vs_oracle']:.5f} eV/A; float32 vs "
         f"float64 plain predict: energy {e_err / nat:.3e} eV/atom (|E| "
         f"{e_abs:.4g}, bar 2e-4), largest force error {f_err:.3e} eV/A "
@@ -2059,6 +2089,439 @@ def phase_offline(learned, lgps, card, device="cuda"):
     return paths, numbers
 
 
+def phase_mesh(committee, card, device="cuda"):
+    """12. The device mesh (the workloads of
+    ``autoforce_tpu_torch.tools.mesh_checks``): a 2x2 ('data', 'model')
+    mesh over the visible cards in turn.  (a) ``Engine.predict`` under the
+    mesh against without it (both float32 through the kernels) and
+    against the float64 reference at the bench.py:412 bars; (b)
+    ``kernel_block`` on both routes against the unsharded call; (c)
+    ``DeviceMD`` under the mesh: its first evaluation against the
+    unsharded one, steps/s, busy share and kernels per step beside the
+    unsharded driver's, every evaluation launching each SOAP kernel once
+    per data shard, the first chunk sync-checked and the breach reads
+    counted; (d) ``DeviceNPT``, ``DeviceFIRE`` (both cells) and
+    ``DeviceNEB``: the first evaluation against the unsharded one, finite,
+    launches per evaluation; (e) phase 9's committee and the fused
+    ActiveMeta bias under the mesh; (f) ``ActiveCalculator(mesh=...)``
+    learning on the flagship (wall-capped), its model's predict under the
+    mesh against without; (g) ``cl.md`` with ``mesh = make_mesh(...)`` in
+    ARGS; (h) ``mesh_bench``: the sharded step against ``md_chunk``.
+    ``committee``: phase 9's committee calculator.  Returns (launches by
+    path, numbers, the kernels' inputs at one data shard's rows)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.meta import ActiveMeta
+    from autoforce_tpu_torch.io.model_io import load_model
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.md import device_npt as dnpt
+    from autoforce_tpu_torch.opt import device_fire as dfire
+    from autoforce_tpu_torch.opt import device_neb as dneb
+    from autoforce_tpu_torch.opt.neb import interpolate_images
+    from autoforce_tpu_torch.parallel import mesh_bench as mb
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import mesh_checks as mc
+    from autoforce_tpu_torch.tools import soap_bench as sb
+    from autoforce_tpu_torch.tools.otf_bench import make_lgps_system
+
+    t_phase = time.time()
+    fs = units.fs
+    mesh = mc.card_mesh(device=device)
+    nd = mesh.shape["data"]
+    devs = [str(d) for d in mesh.devices.ravel()]
+    paths, numbers = {}, dict(mesh=mesh.shape, devices=devs)
+
+    def check(name, value, bound, ok):
+        log(f"mesh {name}: {value} (bound {bound}) [{card}]")
+        if not ok:
+            raise AssertionError(f"phase 12: {name} = {value} misses {bound}")
+
+    def held(name, errs):
+        check(name, ", ".join(f"{k} {v:.3e}" for k, v in errs.items()),
+              f"e {mc.MESH_E_TOL:g} eV/atom, f {mc.MESH_F_TOL:g} of the "
+              f"largest slot term (f_net: of the largest |f|, not held), "
+              f"virial {mc.MESH_V_TOL:g}, cov {mc.MESH_COV_TOL:g}, beta "
+              f"{mc.MESH_BETA_TOL:g}", not mc.within(errs))
+
+    def close(name):
+        got = db.launches()
+        for k, c in got.items():
+            if c == 0:
+                raise AssertionError(f"phase 12 {name}: {k} never launched")
+        paths[name] = got
+        db.reset_launches()
+        return got
+
+    def evaluations(name, ev):
+        check(f"{name}: sharded evaluations not launching each kernel "
+              f"{nd} times", f"{ev['off']} of {ev['calls']}", "0 of > 0",
+              ev["off"] == 0 and ev["calls"] > 0)
+
+    def mesh_calc():
+        return ActiveCalculator(covariance=db.MODEL, calculator=None,
+                                skin=db.SKIN, logfile=None, pckl=None,
+                                tape=None, device=device, mesh=mesh)
+
+    # (a) predict under the mesh, against without and against float64
+    plain = db.serving_calc(device)
+    s = sb.bench_system()
+    s.calc = plain
+    s.get_potential_energy()
+    eng, cfg = plain.engine, plain.cfg
+    ma = plain.model.full_model_arrays()
+    ones = np.ones(cfg.npad)
+    errs = mc.predict_diff(eng, cfg, ma, ones, mesh)
+    held("(a) predict vs unsharded", errs)
+    slot = db.slot_scale(cfg, ma, eng.radii_table(), None, eng,
+                         eng.kernel_space())
+    db.reset_launches()
+    eng.mesh = mesh
+    try:
+        e, f, *_ = eng.predict(cfg, ma, ones)
+        torch.cuda.synchronize()
+    finally:
+        eng.mesh = None
+    got = close("mesh_predict")
+    check("(a) launches of one sharded predict", got,
+          f"{nd} of each", all(v == nd for v in got.values()))
+    ref = np.load(ACC_REF)
+    n = len(s)
+    e_err = abs(float(e) - float(ref["e"])) / n
+    f_mae = float(np.abs(f.cpu().numpy()[:n] - ref["f"]).mean())
+    check("(a) predict vs float64 reference", f"energy {e_err:.3e} eV/atom, "
+          f"force MAE {f_mae:.3e} eV/A", "2e-4, 1e-2 (bench.py:412)",
+          e_err < 2e-4 and f_mae < 1e-2)
+    numbers["predict"] = dict(errs, e_vs_f64=e_err, f_mae_vs_f64=f_mae)
+
+    # (b) kernel_block on both routes
+    kb = {}
+    for method, (te, tf) in (("vjp", (KB_KE_TOL, KB_KF_TOL)),
+                             ("jac", (JAC_KE_TOL, JAC_KF_TOL))):
+        ke, kf, kv = mc.kernel_block_diff(eng, cfg, ma, mesh, method)
+        kb[method] = dict(ke=ke, kf=kf, kv=kv)
+        check(f"(b) kernel_block {method} vs unsharded",
+              f"ke {ke:.3e}, kf {kf:.3e}, kv {kv:.3e}", f"{te:g}, {tf:g}",
+              ke <= te and kf <= tf and kv <= tf)
+    close("mesh_kb")
+    numbers["kernel_block"] = kb
+
+    # (c) DeviceMD: first evaluation, the first chunk's forces, then rates
+    # beside the unsharded driver
+    reads = [0]
+    host_read = dmd.host_read
+
+    @contextlib.contextmanager
+    def counted_read():  # the in-loop rebuilds' breach reads
+        reads[0] += 1
+        with host_read():
+            yield
+
+    rates, profs, first = {}, {}, {}
+    for label, calc in (("unsharded", plain), ("sharded", mesh_calc())):
+        s = sb.bench_system()
+        s.calc = calc
+        maxwell_boltzmann_velocities(s, 300, seed=3)
+        dyn = dmd.DeviceMD(s, calc, 2 * fs, temperature_K=300, friction=0.02,
+                           chunk=100, check_beta=False)
+        if label == "unsharded":
+            s.get_potential_energy()
+            errs = mc.eval_diff(dyn._new_chain(), mesh, eng)
+            held("(c) DeviceMD first evaluation vs unsharded", errs)
+            numbers["md_first_eval"] = errs
+        # the first chunk, of MESH_CHUNK_STEPS steps from the same state
+        # and noise: the forces it returns
+        with mc.chunk_outputs() as out:
+            dyn.run(mc.MESH_CHUNK_STEPS)
+        first[label] = out[0]
+        db.reset_launches()
+        if label == "unsharded":
+            dyn.run(100)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            dyn.run(200)
+            torch.cuda.synchronize()
+            rates[label] = 200 / (time.time() - t0)
+            db.reset_launches()
+        else:
+            dmd.host_read = counted_read
+            try:
+                with mc.evaluation_counter(nd) as ev, \
+                        db.chunk_probe(dmd, "md_chunk", 5) as rec:
+                    dyn.run(100)  # its first chunk sync-checked
+                    torch.cuda.synchronize()
+                    t0 = time.time()
+                    dyn.run(200)
+                    torch.cuda.synchronize()
+                    rates[label] = 200 / (time.time() - t0)
+            finally:
+                dmd.host_read = host_read
+            check("(c) DeviceMD first chunk under the sync check",
+                  rec["sync_checked"], "True", rec["sync_checked"])
+            n = len(s)
+            (p0, f0), (p1, f1) = first["unsharded"], first["sharded"]
+            errs = mc.force_errs(f1[:n], f0[:n], slot)
+            dpos = (p1[:n] - p0[:n]).abs().max().item()
+            held(f"(c) DeviceMD first chunk's forces ({mc.MESH_CHUNK_STEPS} "
+                 f"steps, |dpos| {dpos:.2e} A) vs unsharded", errs)
+            numbers["md_first_chunk"] = dict(errs, dpos=dpos)
+            evaluations("(c) DeviceMD", ev)
+            got = close("mesh_md")
+            per = {k: v / rec["steps"] for k, v in got.items()}
+            log(f"mesh DeviceMD [{card}]: {rec['steps']} steps in "
+                f"{rec['calls']} chunks, {ev['calls']} evaluations, "
+                f"{reads[0]} breach reads (one host read per chunk and per "
+                f"breach), launches {got}: {per} per step")
+            numbers["md"] = dict(steps=rec["steps"], chunks=rec["calls"],
+                                 evaluations=ev["calls"], breach_reads=reads[0],
+                                 launches_per_step=per)
+        kps, us = db.profile_window(lambda: dyn.run(20), 20)
+        profs[label] = (None if kps is None else dict(
+            kernels_per_step=kps, device_us_per_step=us,
+            busy_share=us / (1e6 / rates[label])))
+        db.reset_launches()
+    log(f"mesh DeviceMD vs unsharded [{card}]: {rates['sharded']:.1f} vs "
+        f"{rates['unsharded']:.1f} steps/s over 200 steps (1008 atoms, chunk "
+        f"100); profile {profs}")
+    numbers["md"].update(steps_per_s=rates["sharded"],
+                         unsharded_steps_per_s=rates["unsharded"],
+                         profile=profs["sharded"],
+                         unsharded_profile=profs["unsharded"])
+
+    # (d) NPT, FIRE (both cells), NEB: first evaluation, finite, launches
+    def driver(name, make, run, virial, chain_of=None):
+        s = make()
+        s.calc = plain
+        s.get_potential_energy()
+        d0 = run(s, plain, None)
+        errs = mc.eval_diff((chain_of or (lambda d: d._new_chain()))(d0),
+                            mesh, eng, virial=virial)
+        held(f"(d) {name} first evaluation vs unsharded", errs)
+        calc = mesh_calc()
+        s = make()
+        s.calc = calc
+        db.reset_launches()
+        with mc.evaluation_counter(nd) as ev:
+            d1 = run(s, calc, 1)
+            torch.cuda.synchronize()
+        evaluations(f"(d) {name}", ev)
+        close(f"mesh_{name}")
+        finite = bool(np.isfinite(s.positions).all()
+                      and np.isfinite(np.asarray(s.cell)).all())
+        check(f"(d) {name} finite", finite, "True", finite)
+        numbers[name] = dict(first_eval=errs, evaluations=ev["calls"],
+                             steps=d1.nsteps)
+
+    def hot():
+        s = sb.bench_system()
+        maxwell_boltzmann_velocities(s, 300, seed=3)
+        return s
+
+    def npt(s, calc, go):
+        d = dnpt.DeviceNPT(s, calc, 2 * fs, temperature_K=300,
+                           pressure_GPa=100.0, tdamp=50 * fs, pdamp=500 * fs,
+                           chunk=25, check_beta=False, isotropic=False)
+        if go:
+            d.run(50)
+        return d
+
+    def fire(s, calc, go):
+        d = dfire.DeviceFIRE(s, calc, dt=0.05, chunk=25, check_beta=False)
+        if go:
+            d.run(fmax=1e-12, steps=50)
+        return d
+
+    def strained():
+        s = bulk_fcc("Cu", 3.65).repeat(sb.REPS_MD)
+        s.rattle(0.05, seed=1)
+        return s
+
+    def fire_cell(s, calc, go):
+        d = dfire.DeviceFIRE(s, calc, chunk=25, check_beta=False, cell=True)
+        if go:
+            d.run(fmax=1e-12, steps=50)
+        return d
+
+    driver("npt", hot, npt, True)
+    driver("fire", sb.bench_system, fire, False)
+    driver("fire_cell", strained, fire_cell, True)
+    # the band: the snapshot to a rattled copy, three moving images
+    last = sb.bench_system()
+    last.rattle(0.05, seed=2)
+    bands = {}
+    for label, calc in (("plain", plain), ("mesh", mesh_calc())):
+        images = interpolate_images(sb.bench_system(), last.copy(), 5)
+        for im in images:
+            im.calc = calc
+        bands[label] = dneb.DeviceNEB(images, calc, k=0.1, dt=0.05, chunk=10,
+                                      check_beta=False)
+    c0, c1 = bands["plain"]._build_chain(), bands["mesh"]._build_chain()
+    p_int = c1["pos"][1:-1]
+    with torch.no_grad():
+        e0, f0, _ = dneb.band_forces(c0["pos"][1:-1], c0["cfg"], c0["ma"],
+                                     c0["radii"], c0["vs"], eng.params,
+                                     eng.exponent, False, c0["ks"])
+        e1, f1, _ = dneb.band_forces(p_int, c1["cfg"], c1["ma"],
+                                     c1["radii"], c1["vs"], eng.params,
+                                     eng.exponent, False, c1["ks"],
+                                     mesh=mesh, own_idx=c1["oidx"])
+    n = len(last)
+    slot = db.slot_scale(c0["cfg"], c0["ma"], c0["radii"], c0["vs"], eng,
+                         c0["ks"], nimg=p_int.shape[0])
+    errs = dict(e=(e1 - e0).abs().max().item() / n,
+                **mc.force_errs(f1[:, :n], f0[:, :n], slot))
+    held("(d) NEB first band evaluation vs unsharded", errs)
+    db.reset_launches()
+    band = bands["mesh"]
+    with mc.evaluation_counter(nd) as ev:
+        band.run(fmax=1e-9, steps=20)
+        torch.cuda.synchronize()
+    evaluations("(d) NEB", ev)
+    close("mesh_neb")
+    finite = all(np.isfinite(im.positions).all() for im in band.images)
+    check("(d) NEB finite", finite, "True", finite)
+    numbers["neb"] = dict(first_eval=errs, evaluations=ev["calls"],
+                          iterations=band.nsteps, fmax=band.fmax)
+
+    # (e) phase 9's committee and the fused ActiveMeta bias under the mesh
+    committee._calc = None
+    ceng = committee.engine
+    s = make_lgps_system()
+    s.calc = committee
+    s.get_potential_energy()
+    chain = dmd.new_chain(committee, s, True)
+    check("(e) the committee serves experts", len(dmd.committee_models(
+        committee)), ">= 2", chain["mean_e"] is not None)
+    errs = mc.eval_diff(chain, mesh, ceng)
+    held("(e) committee first evaluation vs unsharded", errs)
+    ceng.mesh = mesh
+    try:
+        maxwell_boltzmann_velocities(s, 400, seed=5)
+        dyn = dmd.DeviceMD(s, committee, 2 * fs, temperature_K=400,
+                           friction=0.05, chunk=25, check_beta=False)
+        db.reset_launches()
+        with mc.evaluation_counter(nd) as ev:
+            t0 = time.time()
+            dyn.run(50)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        ceng.mesh = None
+    evaluations("(e) committee DeviceMD", ev)
+    close("mesh_bcm")
+    finite = bool(np.isfinite(s.positions).all())
+    check("(e) committee MD finite", finite, "True", finite)
+    numbers["committee"] = dict(first_eval=errs, experts=len(
+        dmd.committee_models(committee)), evaluations=ev["calls"],
+        steps_per_s=50 / wall)
+    scale = ENS_CAPS["meta_scale"]
+    s = hot()
+    plain.meta = ActiveMeta(scale=scale)
+    try:
+        s.calc = plain
+        s.get_potential_energy()
+        chain = dmd.new_chain(plain, s, True, meta=True)
+    finally:
+        plain.meta = None
+    errs = mc.eval_diff(chain, mesh, eng, meta_scale=scale)
+    held("(e) ActiveMeta first evaluation vs unsharded", errs)
+    calc = mesh_calc()
+    calc.meta = ActiveMeta(scale=scale)
+    s = hot()
+    s.calc = calc
+    db.reset_launches()
+    dyn = dmd.DeviceMD(s, calc, 2 * fs, temperature_K=300, friction=0.02,
+                       chunk=25, check_beta=False)
+    with mc.evaluation_counter(nd) as ev:
+        t0 = time.time()
+        dyn.run(50)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    evaluations("(e) ActiveMeta DeviceMD", ev)
+    close("mesh_meta")
+    numbers["meta"] = dict(first_eval=errs, evaluations=ev["calls"],
+                           steps_per_s=50 / wall)
+
+    # (f) learning under the mesh, wall-capped
+    db.reset_launches()
+    out, lcalc, ls = mc.learn(mesh, wall_cap=MESH_CAPS["learn_wall_cap"])
+    torch.cuda.synchronize()
+    close("mesh_otf")
+    check("(f) learning under the mesh grew, finite",
+          f"{out['steps']} steps in {out['wall_s']:.1f} s, (ndata, m) = "
+          f"({out['ndata']}, {out['m']}), {out['fp_calls']} oracle calls, "
+          f"finite {out['finite']}", "m > 0, oracle called, finite",
+          out["m"] > 0 and out["fp_calls"] > 0 and out["finite"])
+    leng = lcalc.engine
+    lcfg = leng.make_config(ls)
+    errs = mc.predict_diff(leng, lcfg, lcalc.model.full_model_arrays(),
+                           np.ones(lcfg.npad), mesh)
+    held("(f) the learned model's predict vs unsharded", errs)
+    numbers["learn"] = dict(out, predict=errs)
+    del lcalc
+
+    # (g) cl.md with a mesh in ARGS
+    cwd = os.getcwd()
+    os.makedirs("mesh_cl", exist_ok=True)
+    os.chdir("mesh_cl")
+    try:
+        db.reset_launches()
+        frames = mc.cl_md(db.MODEL, f"make_mesh(data={nd}, model="
+                          f"{mesh.shape['model']}, devices={devs!r})",
+                          steps=MESH_CAPS["cl_steps"], device=device)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    close("mesh_cl")
+    finite = len(frames) >= 1 and all(np.isfinite(a.positions).all()
+                                      for a in frames)
+    check("(g) cl.md under an ARGS mesh: frames, finite", len(frames),
+          ">= 1, finite", finite)
+    numbers["cl_md"] = dict(frames=len(frames))
+
+    # (h) mesh_bench at 1008 atoms: the sharded step against md_chunk
+    model = load_model(db.MODEL, device=device, dtype=torch.float32)
+    res = mb.measure(model=model, system=sb.bench_system(), n_data=nd,
+                     n_model=mesh.shape["model"],
+                     steps=MESH_CAPS["bench_steps"], device=device,
+                     devices=devs)
+    mb.report(res)
+    close("mesh_bench")
+    bound = mc.traj_bound(slot, res["mass_min"], res["duration"],
+                          res["pos_ulp"])
+    check("(h) mesh_bench trajectory |dpos|max vs md_chunk",
+          f"{res['dpos_max']:.3e} A", f"{bound:.3e} A (1/2 MESH_F_TOL slot "
+          f"{slot:.3f} eV/A / {res['mass_min']:.2f} amu T^2 + 4 ulp "
+          f"{res['pos_ulp']:.2e} A)", res["dpos_max"] <= bound)
+    numbers["mesh_bench"] = dict(res, dpos_bound=bound)
+    # both kernels at one data shard's rows of the MD bucket
+    shard = (eng.params, _shard_rows(cfg, nd, eng))
+    numbers["wall_s"] = time.time() - t_phase
+    log(f"phase 12 (a-h) took {numbers['wall_s']:.1f} s (budget 45 s)")
+    return paths, numbers, shard
+
+
+def _shard_rows(cfg, n_data, eng):
+    """The SOAP kernels' inputs at data shard 0's rows of ``cfg`` (the
+    rows a sharded step launches each kernel on)."""
+    import torch
+
+    from autoforce_tpu_torch.engine import _env_rvec
+
+    nb = -(-cfg.npad // n_data)
+    oidx = torch.arange(nb, device=cfg.positions.device)
+    rows = cfg._replace(nbr_idx=cfg.nbr_idx[:nb], nbr_off=cfg.nbr_off[:nb],
+                        nbr_sidx=cfg.nbr_sidx[:nb], nbr_mask=cfg.nbr_mask[:nb],
+                        atom_mask=cfg.atom_mask[:nb], numbers=cfg.numbers[:nb])
+    with torch.no_grad():
+        rvec = _env_rvec(cfg.positions, cfg.cell, rows, oidx=oidx).contiguous()
+    return (rvec, rows.nbr_sidx, rows.nbr_mask & rows.atom_mask[:, None],
+            eng.radii_table())
+
+
 def phase_profile(dyn, ms_per_step, card):
     """Device time by kernel over 50 MD steps (torch.profiler), and the
     device's busy share of an unprofiled step ('not measured' when the
@@ -2288,7 +2751,6 @@ def run_phases(torch):
     ens_launches, ens_numbers, ens_shapes = phase_ensembles(
         bcm_calc, make_lgps_system, os.path.join(bcm_dir, "bcm_1.pckl"),
         sorted(rates)[1], card)
-    del bcm_calc
     # both kernels at the replica ensemble's stacked rows and the
     # multi-task growth's rows
     worst.update(phase_kernels({k: v + (both,) for k, v in ens_shapes.items()}))
@@ -2297,11 +2759,18 @@ def run_phases(torch):
     off_launches, off_numbers = phase_offline(
         os.path.join(bcm_dir, "bcm_1.pckl"), make_lgps_system, card)
     took(11)
+    mesh_launches, mesh_numbers, mesh_shard = phase_mesh(bcm_calc, card)
+    del bcm_calc
+    # both kernels at one data shard's rows of the MD bucket
+    worst.update(phase_kernels({"mesh_shard": mesh_shard + (both,)}))
+    timing["mesh_shard"] = mesh_shard
+    took("12 with its kernel checks")
     rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
                                          **driver_launches,
                                          "kb_jac": jac_launches,
                                          **ks_launches, **bcm_launches,
-                                         **ens_launches, **off_launches},
+                                         **ens_launches, **off_launches,
+                                         **mesh_launches},
                          card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
@@ -2316,6 +2785,7 @@ def run_phases(torch):
     print(json.dumps({"committee": bcm_numbers}))
     print(json.dumps({"replicas_meta_multitask_parametric": ens_numbers}))
     print(json.dumps({"offline_oracle": off_numbers}))
+    print(json.dumps({"mesh": mesh_numbers}, default=str))
     log(f"chip_smoke took {time.time() - t_all:.1f} s after the card check "
         f"(ceiling 1000 s)")
     print(json.dumps({"kernels": rows}))

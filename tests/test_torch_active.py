@@ -254,7 +254,8 @@ def test_oracle_is_checked():
     with pytest.raises(TypeError):
         ActiveCalculator(covariance=None, calculator=object(), logfile=None,
                          pckl=None, tape=None, **F64)
-    with pytest.raises(NotImplementedError):
+    # the mesh is ported: a mesh object is checked like the oracle
+    with pytest.raises(TypeError):
         ActiveCalculator(covariance=None, calculator=None, logfile=None,
                          pckl=None, tape=None, mesh=object(), **F64)
 

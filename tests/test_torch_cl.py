@@ -7,9 +7,10 @@ and MTK NPT with ``bulk_modulus``),
 in ARGS and the trained 32-atom Cu model of tests/test_torch_npt.py.  The
 sampling thresholds are set out of reach so that both runs stay on the
 frozen model (the oracle is loaded, and called only where the command
-asks for an exact check).  Then the refusal of what is not ported (the
-mesh); the oracle names that resolve now are held in
-tests/test_torch_oracle_io.py.
+asks for an exact check).  Then the refusal of a mesh with more devices
+than the machine has (the mesh itself runs in
+tests/test_torch_mesh_drivers.py); the oracle names that resolve now are
+held in tests/test_torch_oracle_io.py.
 
 Tolerances: 1e-8 A for positions and cells, 1e-8 eV for energies."""
 
@@ -164,9 +165,13 @@ def test_cl_neb_device_matches_jax(trained_folder, tmp_path,  # noqa: F811
     ("mesh = make_mesh(data=8)", "mesh"),
 ])
 def test_cl_refuses_what_is_not_ported(tmp_path, monkeypatch, line, what):
+    # the mesh is ported: ARGS' make_mesh refuses a mesh of more cards than
+    # the machine has (its default devices are the cards, never the CPU)
+    monkeypatch.setattr("torch.cuda.device_count", lambda: 1)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: True)
     monkeypatch.chdir(tmp_path)
     (tmp_path / "ARGS").write_text(line + "\n")
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(ValueError, match=f"{what} 8x1 needs 8 devices, have 1"):
         cl.refresh()
 
 

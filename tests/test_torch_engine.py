@@ -193,7 +193,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_engine_refuses_unported_options():
-    with pytest.raises(NotImplementedError):
+    # the device mesh is ported: a mesh of the engine's device is taken,
+    # anything else refused
+    from autoforce_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 2, devices=["cpu"] * 4)
+    assert Engine(device="cpu", mesh=mesh).mesh is mesh
+    with pytest.raises(TypeError):
         Engine(device="cpu", mesh=object())
     # the kernel space is ported: pair terms, the alchemical mixing and
     # every base kernel construct

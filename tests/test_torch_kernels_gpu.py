@@ -627,3 +627,67 @@ def test_fused_meta_step_on_card(cuda, tmp_path, monkeypatch):
     assert m["beta_median"] >= 1e-3, m
     assert m["e_err"] <= m["e_tol"], m
     assert m["f_err"] <= eb.META_F_TOL * m["f_scale"], m
+
+
+def test_sharded_predict_on_card_matches_unsharded(cuda):
+    """Engine.predict under a 2x2 mesh of the card repeated against the
+    same engine without it, both float32 through the kernels
+    (tools/mesh_checks.py's MESH_*_TOL), and one launch of each kernel
+    per data shard."""
+    from autoforce_tpu_torch.io.model_io import load_model
+    from autoforce_tpu_torch.parallel import make_mesh
+    from autoforce_tpu_torch.system import bulk_fcc
+    from autoforce_tpu_torch.tools import mesh_checks as mc
+
+    s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+    s.rattle(0.05, seed=1)
+    model = load_model(MODEL, device="cuda", dtype=torch.float32)
+    eng = model.engine
+    cfg = eng.make_config(s)
+    ma = model.full_model_arrays()
+    mesh = make_mesh(2, 2, devices=["cuda:0"] * 4)
+    errs = mc.predict_diff(eng, cfg, ma, np.ones(cfg.npad), mesh)
+    assert not mc.within(errs), errs
+    db.reset_launches()
+    eng.mesh = mesh
+    try:
+        eng.predict(cfg, ma, np.ones(cfg.npad))
+    finally:
+        eng.mesh = None
+    assert db.launches() == {"soap_coeff_fwd": 2, "soap_coeff_bwd": 2}
+
+
+def test_sharded_md_chunk_on_card_never_waits(cuda):
+    """A sharded DeviceMD chunk under CUDA's sync debug mode "error" (no
+    host read inside it) launches each kernel twice per evaluation on a
+    2x2 mesh, and its first evaluation matches the unsharded one."""
+    from autoforce_tpu_torch import units
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.md import device_md as dmd
+    from autoforce_tpu_torch.parallel import make_mesh
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import mesh_checks as mc
+
+    mesh = make_mesh(2, 2, devices=["cuda:0"] * 4)
+    calc = ActiveCalculator(covariance=MODEL, calculator=None, skin=1.2,
+                            logfile=None, pckl=None, tape=None, mesh=mesh)
+    s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+    s.rattle(0.05, seed=1)
+    s.calc = calc
+    maxwell_boltzmann_velocities(s, 300, seed=3)
+    dyn = dmd.DeviceMD(s, calc, 2 * units.fs, temperature_K=300, chunk=20,
+                       check_beta=False)
+    with mc.evaluation_counter(2) as ev, \
+            db.chunk_probe(dmd, "md_chunk", 5) as rec:
+        dyn.run(40)
+    assert rec["sync_checked"] and rec["steps"] == 40
+    assert ev["calls"] >= 40 and ev["off"] == 0, ev
+    plain = db.serving_calc()
+    t = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+    t.rattle(0.05, seed=1)
+    t.calc = plain
+    t.get_potential_energy()
+    chain = dmd.DeviceMD(t, plain, 2 * units.fs, temperature_K=300,
+                         check_beta=False)._new_chain()
+    errs = mc.eval_diff(chain, mesh, plain.engine)
+    assert not mc.within(errs), errs

@@ -90,13 +90,37 @@ def env_pair_mask(term: PairTerm, number, nbr_numbers, nbr_mask):
     return _select(term, number, nbr_numbers) & nbr_mask
 
 
+def _pow_grad(t, n):
+    """d(t**n)/dt, with torch's rule for n = 0 (zero)."""
+    return torch.zeros_like(t) if n == 0 else n * t ** (n - 1)
+
+
 def psi_factor_grads(d, term: PairTerm):
-    """(psi'(d), fac'(d)) elementwise (one forward-mode pass each; both
-    are functions of their own distance only)."""
-    one = torch.ones_like(d)
-    _, dpsi = torch.func.jvp(lambda x: _psi(x, term), (d,), (one,))
-    _, dfac = torch.func.jvp(lambda x: _factor(x, term), (d,), (one,))
-    return dpsi, dfac
+    """(psi'(d), fac'(d)) elementwise, in closed form: the derivatives of
+    :func:`_psi` and :func:`_factor`, clamps included (a clamped value's
+    derivative is 0 below its floor).  No forward-mode AD: this runs in
+    autograd's backward, which on a mesh of several cards runs one
+    thread per card, and forward-mode AD's dual level is one shared
+    state that concurrent threads enter and leave under each other."""
+    zero = torch.zeros_like(d)
+    if term.kind == "logrbf":
+        dpsi = torch.where(d >= 1e-12, 1.0 / torch.clamp(d, min=1e-12), zero)
+    else:
+        dpsi = torch.ones_like(d)
+    if term.factor is None:
+        return dpsi, zero
+    t = 1.0 - d / term.rc
+    inside = d < term.rc
+    cut = torch.where(inside, t**term.factor_n, zero)
+    dcut = torch.where(inside, _pow_grad(t, term.factor_n) * (-1.0 / term.rc),
+                       zero)
+    if term.factor == "repulsive":
+        c = torch.clamp(d, min=1e-6)
+        dc = (d >= 1e-6).to(d.dtype)
+        dfac = (dcut / c**term.eta
+                - cut * _pow_grad(c, term.eta) * dc / c ** (2 * term.eta))
+        return dpsi, dfac
+    return dpsi, dcut
 
 
 # elements of the (C, n, K, K2) difference tensor per step of

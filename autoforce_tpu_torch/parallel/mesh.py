@@ -631,14 +631,22 @@ def _sharded_forces_fn(shards_with, vs, amask, params, exponent, check_beta,
         sh = shards_with(tbl)
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
+            # the leaf's one consumer is a view on its own device, so its
+            # gradient reaches the leaf from that device's stream; fed
+            # straight into the shards' copies it arrived from each
+            # copy's backward on another card, which torch reports as an
+            # AccumulateGrad stream mismatch (a sync, and a stop to CUDA
+            # graph capture).  The virial path's strain product and
+            # sharded_predict's do the same.
+            p_in = p.view_as(p)
             if mean_e is not None:
                 e, bmax = _psum_committee_energy(
-                    sh, p, None, params, exponent, vs, mean_e, meta_scale,
+                    sh, p_in, None, params, exponent, vs, mean_e, meta_scale,
                     meta_vs)
                 if not check_beta:
                     bmax = torch.zeros_like(bmax)
             else:
-                e, passes = _psum_energy(sh, p, None, params, exponent,
+                e, passes = _psum_energy(sh, p_in, None, params, exponent,
                                          meta_scale, meta_vs)
             (g,) = torch.autograd.grad(e.sum(), p)
         f = -g * amask

@@ -234,3 +234,38 @@ def frozen_rate(calc, system, steps, warmup=CHUNK):
     if not np.isfinite(s.positions).all():
         raise AssertionError("frozen MD produced non-finite positions")
     return rate, rec
+
+
+def hpo_to_cap(wall_cap=900.0, step_cap=4000):
+    """Kernel HPO learning (``learn`` with the trainable kernel at g = 0.5
+    and ``kernel_hpo=1``, as ``chip_smoke.py`` phase 8b runs it) stopped by
+    its record cap, ``lml_record_cap(1024)``, with wall and step caps
+    large enough that the record cap binds first; phase 8b's own 30 s cap
+    ends it after a few records.  Prints and returns the records reached,
+    m, the HPO runs, g, the force MAE against the oracle, the wall time
+    and the card's name and power limit.  On the card:
+    ``python -m autoforce_tpu_torch.tools.kernelspace_bench``."""
+    import json
+
+    from ..kernelalgebra import from_state, softplus
+    from .soap_bench import card_line
+
+    card = card_line()
+    cap = lml_record_cap(1024)
+    eng = flagship_engine(dtype=torch.float32, kernel=from_state(GAMMA_EXPR))
+    out, calc, _ = learn(eng, wall_cap=wall_cap, step_cap=step_cap,
+                         record_cap=cap, kernel_hpo=1)
+    g = float(softplus(np.asarray(eng.kernel_kind.params())[0], np))
+    out = dict(out, record_cap=cap, g=g, card=card)
+    print(f"kernel HPO to its record cap [{card}]: {out['ndata']} of {cap} "
+          f"records, m = {out['m']}, ended by {out['exit']} after "
+          f"{out['steps']} steps in {out['wall_s']:.1f} s; HPO runs "
+          f"{out['kernel_hpo_runs']} (moved {out['kernel_hpo_moved']}), g "
+          f"0.5 -> {g:.6g}; force MAE vs the oracle "
+          f"{out['f_mae_vs_oracle']:.5f} eV/A", flush=True)
+    print(json.dumps({"hpo_to_cap": out}), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    hpo_to_cap()

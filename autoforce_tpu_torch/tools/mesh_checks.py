@@ -13,7 +13,10 @@ one H100 repeats ``cuda:0``).  Workloads, at full width:
     mesh, on the flagship's 1024-atom 4-species crystal;
   * learning: the OTF flagship (``tools/otf_bench.py``: the crystal, the
     Lennard-Jones mixture oracle, lmax = nmax = 3, rc = 6 A, the
-    reference's thresholds) from seed under the mesh, wall-capped.
+    reference's thresholds) from seed under the mesh, wall-capped;
+  * a mesh whose data axis adds rows (:func:`padded_md`): phase 5's
+    model on the flagship crystal over a 3 x 1 mesh, DeviceMD's first
+    chunk against the unsharded driver.
 
 :func:`predict_diff` and :func:`eval_diff` hold a sharded evaluation
 against the unsharded one on the same inputs (both float32 through the
@@ -323,3 +326,80 @@ def cl_md(model_folder, mesh_expr, steps=40, device="cuda"):
                   loginterval=steps // 2, trajectory="md.extxyz")
     cl_md_mod.md(sb.bench_system(), **kwargs)
     return read_xyz("md.extxyz")
+
+
+# a mesh whose data axis adds rows: three data shards on the 1024-atom
+# flagship crystal (1024 rows pad to 1026), DeviceMD's first chunk of
+# PAD_STEPS steps at 400 K with a 0.3 A skin, so that the hot Li atoms
+# breach it inside the chunk (the in-loop rebuild serves each breach with
+# one host read)
+PAD_SHAPE = (3, 1)
+PAD_SKIN = 0.3
+PAD_STEPS = 20
+
+
+def padded_md(folder, mesh, thermostat, device="cuda", steps=PAD_STEPS,
+              temperature_K=400.0, system=None):
+    """DeviceMD (``thermostat``: "langevin" or "nhc") serving the model
+    ``folder`` on ``system()`` (default the flagship crystal) for one
+    chunk of ``steps`` steps, under ``mesh`` and without it, from the same
+    state and noise.  Returns the numbers: the real, padded and
+    mesh-padded row counts, each run's
+    breach reads, the force errors of the chunk's last forces
+    (:func:`force_errs` against the largest slot term), the largest
+    position difference and its bound (:func:`traj_bound`)."""
+    from .. import units
+    from ..calculator.active import ActiveCalculator
+    from ..md import device_md as dmd
+    from ..system import maxwell_boltzmann_velocities
+    from .otf_bench import make_lgps_system
+
+    system = system or make_lgps_system
+    runs = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        calc = ActiveCalculator(covariance=folder, calculator=None,
+                                skin=PAD_SKIN, logfile=None, pckl=None,
+                                tape=None, device=device, mesh=m)
+        s = system()
+        s.calc = calc
+        maxwell_boltzmann_velocities(s, temperature_K, seed=7)
+        dyn = dmd.DeviceMD(s, calc, 2 * units.fs, temperature_K=temperature_K,
+                           friction=0.05, chunk=steps, seed=8,
+                           check_beta=False, thermostat=thermostat)
+        reads = [0]
+        host_read = dmd.host_read
+
+        @contextlib.contextmanager
+        def counted():
+            reads[0] += 1
+            with host_read():
+                yield
+
+        dmd.host_read = counted
+        try:
+            with chunk_outputs() as out:
+                dyn.run(steps)
+        finally:
+            dmd.host_read = host_read
+        chain = dyn._new_chain()
+        runs[label] = dict(out=out, reads=reads[0], calc=calc, system=s,
+                           rows=chain["cfg"].npad, nsteps=dyn.nsteps)
+    u, sh = runs["unsharded"], runs["sharded"]
+    calc, s = u["calc"], u["system"]
+    n = len(s)
+    eng = calc.engine
+    chain = dmd.new_chain(calc, s, False)
+    slot = db.slot_scale(chain["cfg"], chain["ma"], chain["radii"],
+                         chain["vs"], eng, chain["ks"])
+    (p0, f0), (p1, f1) = u["out"][-1], sh["out"][-1]
+    errs = force_errs(f1[:n], f0[:n], slot)
+    dpos = (p1[:n] - p0[:n]).abs().max().item()
+    ulp = float(np.spacing(p0[:n].abs().max().cpu().numpy()))
+    bound = traj_bound(slot, float(s.get_masses().min()),
+                       steps * 2 * units.fs, ulp)
+    return dict(thermostat=thermostat, natoms=n, rows=u["rows"],
+                mesh_rows=sh["rows"], mesh=f"{mesh.shape['data']}x"
+                f"{mesh.shape['model']}", steps=(u["nsteps"], sh["nsteps"]),
+                chunks=(len(u["out"]), len(sh["out"])),
+                breach_reads=(u["reads"], sh["reads"]), slot=slot, **errs,
+                dpos=dpos, dpos_bound=bound)

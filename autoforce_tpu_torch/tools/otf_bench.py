@@ -59,11 +59,12 @@ def make_lgps_system(reps=(4, 4, 2), rattle=0.02):
 def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
                 chunk=50, temperature_K=400, ediff=None, m_target=512,
                 max_inducing=1024, grow_wall_cap=900.0, prod_wall_cap=480.0,
-                on_stage=None):
+                on_stage=None, keep_log=None):
     """Run the three stages at the flagship's width (rc = RC, lmax = LMAX,
     nmax = NMAX, 1024 atoms); ``on_stage(name)`` is called just before
-    each (the caller resets its counters there).  Returns the numbers and
-    the calculator."""
+    each (the caller resets its counters there).  The run's side files go
+    with its scratch directory; ``keep_log``: a path to copy its
+    ``active.log`` to first.  Returns the numbers and the calculator."""
     from ..calculator.active import ActiveCalculator
     from ..calculator.oracles import MixtureLennardJones
     from ..md.device_md import DeviceMD
@@ -78,6 +79,7 @@ def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
     ediff = ediff if ediff is not None else 2 * units.kcal_mol
     tmp = tempfile.mkdtemp(prefix="otf_")
     cwd = os.getcwd()
+    keep_log = os.path.abspath(keep_log) if keep_log else None
     os.chdir(tmp)  # active_uncertain / FP side files land here
     try:
         calc = ActiveCalculator(
@@ -150,6 +152,7 @@ def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
         f_mae = float(np.abs(res["forces"] - ref.get_forces()).mean())
         e_err = float(abs(res["energy"] - ref.get_potential_energy()) / len(s))
         final_pos = s.get_positions().copy()
+        served = calc.size
 
         # -------- frozen: the same steps and at least ten chunks, oracle
         # detached
@@ -185,6 +188,10 @@ def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
             "frozen_steps_per_sec": frozen_steps / t_frozen,
             "learning_overhead_x": (t_prod / prod_done) / (t_frozen / frozen_steps),
             "final_m": m, "final_ndata": ndata,
+            # the model as it leaves this function (the accuracy check's
+            # calculate, oracle still attached, may sample once more): the
+            # one the frozen stage and its callers serve
+            "served_ndata": served[0], "served_m": served[1],
             "fp_calls": ev_g.get("fp_calls", 0) + ev.get("fp_calls", 0),
             "updates": ev_g.get("updates", 0) + ev.get("updates", 0),
             "prod_fp_calls": ev.get("fp_calls", 0),
@@ -209,5 +216,7 @@ def measure_otf(device="cuda", dtype=None, grow_cap=400, prod_steps=400,
         }
         return out, calc
     finally:
+        if keep_log and os.path.isfile(os.path.join(tmp, "active.log")):
+            shutil.copyfile(os.path.join(tmp, "active.log"), keep_log)
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)

@@ -31,7 +31,8 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    skin 1.2, ediff = 2 kcal/mol, max_inducing 1024): growth, production
    with learning on, then frozen MD (at least ten chunks), growth and
    production each under a wall cap (``OTF_CAPS``).  Fails
-   unless the learned forces are within 0.15 eV/A (MAE) of the oracle's,
+   unless production added ``OTF_PROD_FLOOR`` inducing environments or
+   more, the learned forces are within 0.15 eV/A (MAE) of the oracle's,
    both kernels launched while learning, and positions stayed finite.
    Then, on the learned model: ``kernel_block`` in float32 (the kernels)
    against float64 (the plain versions) on the card, both kernels against
@@ -180,8 +181,34 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    flagship for ``MESH_CAPS["learn_wall_cap"]`` s, its model's predict
    under the mesh against without; (g) ``cl.md`` with ``mesh =
    make_mesh(...)`` in ARGS; (h) ``parallel.mesh_bench`` at 1008 atoms:
-   the sharded step against ``md_chunk``.  Both kernels are then checked
+   the sharded step against ``md_chunk``; (i) a 3 x 1 mesh, whose data
+   axis pads the 1024-atom flagship's rows to 1026, serving phase 5's
+   model: ``DeviceMD`` (Langevin, then NHC) for one 20-step chunk with a
+   0.3 A skin, breached inside it, against the unsharded driver from the
+   same state and noise (``mesh_checks.padded_md``: forces at
+   ``MESH_F_TOL`` of the largest slot term, positions within
+   ``traj_bound``, equal breach reads).  Both kernels are then checked
    at one data shard's rows, timed in phase 6.
+13. The periphery (run right after phase 12; caps in ``PERI_CAPS``, a
+   budget of 30 s).  (a) ``autoforce_tpu_torch.graft_entry.entry()``: the
+   fused SGPR step float32 on the card against float64 through the plain
+   versions (2e-4 eV/atom, 1e-2 eV/A), one launch of each kernel.  (b)
+   ``graft_entry.dryrun_multichip(3)`` on ``cuda:0`` repeated (3 x 1, the
+   data axis adds rows; its own 1e-8 checks, float64) and
+   ``dryrun_multichip(4)`` (2 x 2) while the budget allows.  (c)
+   ``analysis.structgen.StructureSearch`` ranking Ge <-> P swaps of the
+   unrattled flagship crystal with phase 5's model served frozen: one
+   epoch, every energy float32 against float64 plain (2e-4 eV/atom), one
+   launch of each kernel per energy, the structure restored after every
+   probe, the cache read back by a second search.  (d) ``remote.twinrun``:
+   the flagship's oracle behind a ``calc_server`` process on a free port
+   and a driver process serving phase 5's model on the card: the oracle
+   through the socket against this process's (1e-10 of the largest
+   value), the driver's launches (one of each per evaluation) and
+   sizes, the port free afterwards where ``lsof`` exists.  (e)
+   ``analysis.logs`` on phase 5's active.log (the last parsed sizes are
+   phase 5's), ``log_to_figure`` to a PNG where matplotlib is installed,
+   ``TrajAnalyser`` and ``rdf`` on frames of phase 4's serving MD.
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
@@ -196,22 +223,26 @@ Each phase logs its wall time; the whole script is held to 1000 s on an
 H100 (its time limit is 1200 s).  Before the last lines come JSON objects
 with each phase's numbers (``drivers``, ``otf``, ``kernel_space``,
 ``committee``, ``replicas_meta_multitask_parametric``, ``offline_oracle``,
-``mesh``);
+``mesh``, ``periphery``);
 the line before the card's is one JSON object with every kernel's numbers
 (launches split by path: serving MD, OTF learning, each structure driver,
 each kernel-space path, each committee path, the replica ensemble, the
 fused and host metadynamics, multi-task growth and serving, and the
 offline paths: socket learning, train, test, build, shrink, LAMMPS, and
 the mesh paths: predict, kernel_block, MD, NPT, FIRE, FIRE cell, NEB,
-committee, ActiveMeta, learning, cl.md, mesh_bench); the last line is
+committee, ActiveMeta, learning, cl.md, mesh_bench, the padded mesh, and
+the periphery's: graft_entry, dryrun, structgen and the twin run's driver
+process, as it counted them); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -262,9 +293,21 @@ KS_CAPS = dict(hpo_wall_cap=30.0, chem_wall_cap=45.0, frozen_steps=20,
 # step counts (bench.py measure_otf), with wall caps that keep the whole
 # script inside its time limit: growth ends by m >= 512 in under a minute
 # on an H100, production (about 0.3 steps/s while the model still grows)
-# gets 5 1/4 minutes (6 until phase 12, the mesh, took 45 s of them)
+# gets 5 1/4 minutes (6 until phase 12, the mesh, took 45 s of them).
+# Production is the learning user's steady state: MD with the trip armed
+# on a model past the growth stage, each trip sampling, refitting and
+# resuming at m between 512 and max_inducing (1024), where the column
+# blocks and the solves are largest.  The cap no longer lets it reach
+# max_inducing, so what it must reach is held instead: OTF_PROD_FLOOR
+# inducing environments added in production.  Seven calls on an H100
+# added 372-471 in 98-122 steps (m 541-550 -> 922-1012, PERF.md sections
+# 5 and 6); 256 takes m from ~545 past 800 and leaves 31 % below the
+# least of them for a slow host
 OTF_CAPS = dict(grow_cap=400, prod_steps=400, chunk=50, grow_wall_cap=150.0,
                 prod_wall_cap=315.0)
+OTF_PROD_FLOOR = 256
+# phase 5's active.log, kept in the working directory for phase 13 (e)
+OTF_LOG = "otf_active.log"
 # the committee phase (9): the growth stage's wall cap and each driver's
 # steps; the phase's budget is 150 s, the script's ceiling 1000 s
 BCM_CAPS = dict(max_inducing=256, max_data=8, grow_wall_cap=45.0,
@@ -293,6 +336,14 @@ OFF_CAPS = dict(socket_checks=3, init_samples=2, frames=6, every=25,
 # mesh_bench's timed steps; the phase's budget is 45 s, paid for by OTF
 # production's wall cap (360 -> 315 s)
 MESH_CAPS = dict(learn_wall_cap=12.0, cl_steps=40, bench_steps=100)
+# phase 13, the periphery: the budget (30 s on an H100), the StructureSearch
+# probe (one epoch of Ge <-> P swaps on the unrattled flagship crystal,
+# whose site deduplication keeps three children), the twin run's
+# configurations, and the dry run on four devices (3.2 s on an H100), run
+# last and only while PERI_CAPS["dryrun4_before"] s or more of the budget
+# are left
+PERI_CAPS = dict(budget=30.0, swap=(32, 15), max_child=4, max_parents=2,
+                 twin_configs=3, dryrun4_before=5.0)
 
 
 def log(*a):
@@ -931,8 +982,9 @@ def _reset_launches():
 
 def phase_otf(card):
     """The OTF learning path with the launch counters read around each
-    stage, and a host profile (cProfile) of the growth stage.  Returns
-    (numbers, calculator, launches while learning)."""
+    stage, and a host profile (cProfile) of the growth stage; the run's
+    active.log is kept as ``OTF_LOG``.  Returns (numbers, calculator,
+    launches while learning)."""
     import cProfile
     import io
     import pstats
@@ -956,7 +1008,8 @@ def phase_otf(card):
         _reset_launches()
 
     out, calc = ob.measure_otf(device="cuda", dtype=torch.float32,
-                               on_stage=on_stage, **OTF_CAPS)
+                               on_stage=on_stage, keep_log=OTF_LOG,
+                               **OTF_CAPS)
     torch.cuda.synchronize()
     by_stage[current[-1]] = _launch_counts()
     learning = {k: by_stage["grow"][k] + by_stage["prod"][k]
@@ -993,6 +1046,11 @@ def phase_otf(card):
         raise AssertionError("OTF MD produced non-finite positions")
     if not out["f_mae_vs_oracle"] <= ob.OTF_F_MAE_BOUND:
         raise AssertionError("OTF force MAE above the 0.15 eV/A bar")
+    log(f"OTF production added {out['prod_added_inducing']} inducing "
+        f"environments (floor {OTF_PROD_FLOOR}, OTF_PROD_FLOOR) [{card}]")
+    if not out["prod_added_inducing"] >= OTF_PROD_FLOOR:
+        raise AssertionError("OTF production added fewer inducing "
+                             f"environments than {OTF_PROD_FLOOR}")
     for name, c in learning.items():
         if c == 0:
             raise AssertionError(f"{name} never launched while learning")
@@ -2089,7 +2147,7 @@ def phase_offline(learned, lgps, card, device="cuda"):
     return paths, numbers
 
 
-def phase_mesh(committee, card, device="cuda"):
+def phase_mesh(committee, learned, card, device="cuda"):
     """12. The device mesh (the workloads of
     ``autoforce_tpu_torch.tools.mesh_checks``): a 2x2 ('data', 'model')
     mesh over the visible cards in turn.  (a) ``Engine.predict`` under the
@@ -2106,9 +2164,13 @@ def phase_mesh(committee, card, device="cuda"):
     ActiveMeta bias under the mesh; (f) ``ActiveCalculator(mesh=...)``
     learning on the flagship (wall-capped), its model's predict under the
     mesh against without; (g) ``cl.md`` with ``mesh = make_mesh(...)`` in
-    ARGS; (h) ``mesh_bench``: the sharded step against ``md_chunk``.
-    ``committee``: phase 9's committee calculator.  Returns (launches by
-    path, numbers, the kernels' inputs at one data shard's rows)."""
+    ARGS; (h) ``mesh_bench``: the sharded step against ``md_chunk``; (i)
+    a 3 x 1 mesh, whose data axis adds rows to the 1024-atom flagship,
+    serving ``learned`` (phase 5's model folder): DeviceMD (Langevin, then
+    NHC) for one chunk with in-loop breaches against the unsharded driver
+    (``mesh_checks.padded_md``).  ``committee``: phase 9's committee
+    calculator.  Returns (launches by path, numbers, the kernels' inputs
+    at one data shard's rows)."""
     import numpy as np
     import torch
 
@@ -2497,10 +2559,43 @@ def phase_mesh(committee, card, device="cuda"):
           f"{slot:.3f} eV/A / {res['mass_min']:.2f} amu T^2 + 4 ulp "
           f"{res['pos_ulp']:.2e} A)", res["dpos_max"] <= bound)
     numbers["mesh_bench"] = dict(res, dpos_bound=bound)
+
+    # (i) a mesh whose data axis adds rows: 3 x 1 on the 1024-atom
+    # flagship (1024 rows pad to 1026), phase 5's model served frozen,
+    # DeviceMD Langevin then NHC for one chunk with in-loop breaches,
+    # against the unsharded driver from the same state and noise
+    pad_mesh = mc.card_mesh(mc.PAD_SHAPE, device=device)
+    db.reset_launches()
+    pads = {}
+    for thermostat in ("langevin", "nhc"):
+        r = mc.padded_md(learned, pad_mesh, thermostat, device=device)
+        pads[thermostat] = r
+        log(f"mesh (i) {thermostat} on the {r['mesh']} mesh [{card}]: "
+            f"{r['natoms']} atoms, {r['rows']} rows unsharded, "
+            f"{r['mesh_rows']} on the mesh; {r['steps']} steps in "
+            f"{r['chunks']} chunks, breach reads {r['breach_reads']}")
+        check(f"(i) {thermostat}: the mesh added rows",
+              f"{r['rows']} -> {r['mesh_rows']}",
+              f"more, a multiple of {mc.PAD_SHAPE[0]}",
+              r["mesh_rows"] > r["rows"]
+              and r["mesh_rows"] % mc.PAD_SHAPE[0] == 0)
+        check(f"(i) {thermostat}: steps, chunks and breach reads as "
+              f"unsharded", f"{r['steps']}, {r['chunks']}, "
+              f"{r['breach_reads']}", "equal, breached",
+              r["steps"][0] == r["steps"][1] == mc.PAD_STEPS
+              and r["chunks"][0] == r["chunks"][1]
+              and r["breach_reads"][0] == r["breach_reads"][1] > 0)
+        held(f"(i) {thermostat}: the chunk's forces vs unsharded",
+             dict(f=r["f"], f_net=r["f_net"]))
+        check(f"(i) {thermostat}: |dpos|max vs unsharded",
+              f"{r['dpos']:.3e} A", f"{r['dpos_bound']:.3e} A "
+              f"(mesh_checks.traj_bound)", r["dpos"] <= r["dpos_bound"])
+    close("mesh_pad")
+    numbers["padded"] = pads
     # both kernels at one data shard's rows of the MD bucket
     shard = (eng.params, _shard_rows(cfg, nd, eng))
     numbers["wall_s"] = time.time() - t_phase
-    log(f"phase 12 (a-h) took {numbers['wall_s']:.1f} s (budget 45 s)")
+    log(f"phase 12 (a-i) took {numbers['wall_s']:.1f} s (budget 50 s)")
     return paths, numbers, shard
 
 
@@ -2520,6 +2615,341 @@ def _shard_rows(cfg, n_data, eng):
         rvec = _env_rvec(cfg.positions, cfg.cell, rows, oidx=oidx).contiguous()
     return (rvec, rows.nbr_sidx, rows.nbr_mask & rows.atom_mask[:, None],
             eng.radii_table())
+
+
+# the twin run's driver script: phase 5's model served on the card and the
+# flagship's oracle reached through the socket, both on the configurations
+# that the parent wrote (extxyz, exact floats); its last line carries its
+# numbers for the parent
+TWIN_DRIVER = '''import json, sys, time
+t0 = time.time()
+import numpy as np
+import torch
+from autoforce_tpu_torch.calculator.active import ActiveCalculator
+from autoforce_tpu_torch.calculator.socket import SocketCalculator
+from autoforce_tpu_torch.descriptor import soap_kernels as sk
+from autoforce_tpu_torch.io.xyz import read_xyz
+folder, port, device, configs = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+oracle = SocketCalculator(ip="localhost", port=port)
+calc = ActiveCalculator(covariance=folder, calculator=None, logfile=None,
+                        pckl=None, tape=None, device=device)
+t_ready = time.time() - t0
+sk.soap_coeff_fwd.launches = sk.soap_coeff_bwd.launches = 0
+rows = []
+for s in read_xyz(configs):
+    s.calc = calc
+    e, f = s.get_potential_energy(), s.get_forces()
+    t = s.copy()
+    t.calc = oracle
+    ef, ff = t.get_potential_energy(), t.get_forces()
+    rows.append(dict(e_ml=float(e), e_fp=float(ef),
+                     f_mae=float(np.abs(f - ff).mean())))
+if device.startswith("cuda"):
+    torch.cuda.synchronize()
+print("TWIN " + json.dumps(dict(
+    launches={"soap_coeff_fwd": sk.soap_coeff_fwd.launches,
+              "soap_coeff_bwd": sk.soap_coeff_bwd.launches},
+    size=list(calc.size), natoms=len(s), rows=rows, ready_s=t_ready,
+    wall_s=time.time() - t0)), flush=True)
+'''
+
+
+def phase_periphery(learned, lgps, serving, otf, card, device="cuda"):
+    """13. The periphery on the card (``PERI_CAPS``, a budget of 30 s), in
+    a directory of its own.  (a) ``graft_entry.entry()``: the fused SGPR
+    step in float32 through the kernels against the same step in float64
+    through the plain versions (bench.py:412's bars), one launch of each
+    kernel.  (b) ``graft_entry.dryrun_multichip(3)`` on the card repeated
+    (3 x 1: the data axis adds rows), and ``(4)`` (2 x 2) while the
+    budget allows.  (c) ``StructureSearch`` on phase 5's model, served
+    frozen, over the unrattled flagship crystal: one epoch of swaps of
+    one species pair; every energy on the card in float32 against float64
+    through the plain versions (2e-4 eV/atom), the structure restored
+    after every probe, one launch of each kernel per energy, a second
+    search reading the cache back with equal energies.  (d)
+    ``remote.twinrun``: a ``calc_server`` process serving the flagship's
+    oracle on a free port and a driver process serving phase 5's model on
+    the card; the oracle through the socket against this process's
+    (1e-10 of the largest value), the driver's launches and sizes, the
+    port free afterwards where ``lsof`` exists.  (e)
+    ``analysis.logs.parse_logfile`` of phase 5's active.log (its last
+    sizes phase 5's (ndata, m)), ``log_to_figure`` to a PNG where
+    matplotlib is installed, and
+    ``TrajAnalyser`` and ``rdf`` on frames of phase 4's serving MD.
+    ``learned``: phase 5's model folder; ``lgps(rattle=)``: the flagship's
+    crystal; ``serving``: phase 4's DeviceMD; ``otf``: phase 5's numbers.
+    Returns ({path: launches}, numbers)."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import graft_entry as ge
+    from autoforce_tpu_torch import remote
+    from autoforce_tpu_torch.analysis import TrajAnalyser, rdf
+    from autoforce_tpu_torch.analysis.logs import log_to_figure, parse_logfile
+    from autoforce_tpu_torch.analysis.structgen import StructureSearch
+    from autoforce_tpu_torch.calculator.active import ActiveCalculator
+    from autoforce_tpu_torch.calculator.oracles import MixtureLennardJones
+    from autoforce_tpu_torch.io.xyz import write_xyz
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import offline_bench as ob
+    from autoforce_tpu_torch.tools import otf_bench as otf_mod
+
+    t_phase = time.time()
+    caps = PERI_CAPS
+    paths, numbers = {}, {}
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def check(name, value, bound, ok):
+        log(f"periphery {name}: {value} (bound {bound}) [{card}]")
+        if not ok:
+            raise AssertionError(f"phase 13: {name} = {value} misses {bound}")
+
+    def close(name):
+        got = db.launches()
+        check(f"{name} launched both kernels", got, "each > 0",
+              all(c > 0 for c in got.values()))
+        paths[name] = got
+        db.reset_launches()
+        return got
+
+    work = os.path.join(os.getcwd(), "periphery")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        # (a) the fused step of the driver entry, float32 on the card
+        # against float64 through the plain versions
+        t0 = time.time()
+        fn, args = ge.entry(device=device)
+        db.reset_launches()
+        e, f, _, _, beta = fn(*args)
+        sync()
+        got = close("graft_entry")
+        check("(a) graft_entry launches of one fused step", got,
+              "one of each", all(v == 1 for v in got.values()))
+        with db.plain_kernels():
+            fn64, args64 = ge.entry(device=device, dtype=torch.float64)
+            e64, f64, _, _, beta64 = fn64(*args64)
+        n = int(args[0].atom_mask.sum())
+        e_err = abs(float(e) - float(e64)) / n
+        f_mae = float((f[:n].double() - f64[:n]).abs().mean())
+        check("(a) graft_entry float32 vs float64 plain",
+              f"energy {e_err:.3e} eV/atom, force MAE {f_mae:.3e} eV/A",
+              "2e-4, 1e-2 (bench.py:412)", e_err < 2e-4 and f_mae < 1e-2)
+        numbers["entry"] = dict(natoms=n, e_err_per_atom=e_err, f_mae=f_mae,
+                                beta_finite=bool(torch.isfinite(
+                                    beta[:n]).all()),
+                                wall_s=time.time() - t0)
+
+        # (b) the dry run over a mesh of the card repeated: 3 x 1 adds rows
+        # (2 x 2 after (e), while the budget allows)
+        dry = {}
+
+        def dryrun(nd):
+            t0 = time.time()
+            out = ge.dryrun_multichip(nd, device=device)
+            sync()
+            out["wall_s"] = time.time() - t0
+            dry[nd] = out
+            log(f"periphery (b) dryrun_multichip({nd}) [{card}]: mesh "
+                f"{out['mesh']} on {out['devices']}, {out['natoms']} atoms, "
+                f"{out['npad']} rows -> {out['padded_rows']} on the mesh, "
+                f"{out['wall_s']:.1f} s")
+
+        dryrun(3)
+        check("(b) dryrun_multichip(3): the data axis added rows",
+              f"{dry[3]['npad']} -> {dry[3]['padded_rows']}", "more rows",
+              dry[3]["padded_rows"] > dry[3]["npad"])
+        close("dryrun")
+        numbers["dryrun"] = dry
+
+        # (c) StructureSearch on phase 5's model, frozen, on the card
+        t0 = time.time()
+        calc = ActiveCalculator(covariance=learned, calculator=None,
+                                logfile=None, pckl=None, tape=None,
+                                device=device)
+        s = lgps(rattle=0.0)
+        warm = s.copy()
+        warm.calc = calc
+        warm.get_potential_energy()  # stages the model on the card
+        numbers0 = s.numbers.copy()
+        search = StructureSearch(s, calc=calc, sim=1.0 - 1e-6,
+                                 prefix="search", rng=0)
+        per, restored = [], []
+        energy = search.energy
+
+        def probe(g):
+            fresh = tuple(g) not in search.cached
+            before = db.launches()
+            out = energy(g)
+            if fresh:
+                after = db.launches()
+                per.append({k: after[k] - before[k] for k in after})
+            restored.append(bool(np.array_equal(s.numbers, numbers0)))
+            return out
+
+        search.energy = probe
+        db.reset_launches()
+        t1 = time.time()
+        search.energy(())
+        parents = search.search_swaps([()], [caps["swap"]], epochs=1,
+                                      max_child=caps["max_child"],
+                                      max_parents=caps["max_parents"])
+        sync()
+        t_search = time.time() - t1
+        close("structgen")
+        check("(c) StructureSearch launches per energy", per,
+              "one of each per energy",
+              bool(per) and all(set(p.values()) == {1} for p in per))
+        check("(c) the structure restored after every probe",
+              f"{sum(restored)} of {len(restored)}", "all",
+              all(restored))
+        calc64 = ActiveCalculator(covariance=learned, calculator=None,
+                                  logfile=None, pckl=None, tape=None,
+                                  device=device, dtype=torch.float64)
+        worst = 0.0
+        with db.plain_kernels():
+            for g, e32 in search.cached.items():
+                t = s.copy()
+                for idx, _, z in g:
+                    t.numbers[idx] = z
+                t.calc = calc64
+                worst = max(worst, abs(e32 - t.get_potential_energy()) / len(s))
+        check(f"(c) {len(search.cached)} StructureSearch energies float32 vs "
+              f"float64 plain", f"{worst:.3e} eV/atom", "2e-4 (bench.py:412)",
+              worst < 2e-4)
+        again = StructureSearch(s, calc=None, prefix="search", rng=0)
+        check("(c) a second search reads the cache back",
+              f"{len(again.cached)} energies, equal "
+              f"{again.cached == search.cached}", "all, equal",
+              again.cached == search.cached and len(again.cached) > 0)
+        numbers["structgen"] = dict(
+            natoms=len(s), swap=list(caps["swap"]), energies=len(per),
+            cached=len(search.cached), parents=[list(map(list, p))
+                                                for p in parents],
+            e_err_per_atom_vs_f64=worst, search_s=t_search,
+            s_per_energy=t_search / max(len(per), 1), wall_s=time.time() - t0)
+        del calc, calc64
+
+        # (d) the twin run: an oracle server and a driver, two processes
+        t0 = time.time()
+        port = ob.free_port()
+        script = ob.oracle_script(os.path.join(work, "lgps_oracle.py"))
+        driver = os.path.join(work, "twin_driver.py")
+        with open(driver, "w") as fh:
+            fh.write(TWIN_DRIVER)
+        configs = []
+        for k in range(caps["twin_configs"]):
+            c = lgps()
+            c.rattle(0.05, seed=60 + k)
+            configs.append(c)
+        write_xyz(os.path.join(work, "twin_configs.extxyz"), configs,
+                  forces=False, exact=True)
+        captured = os.path.join(work, "twin.out")
+        sys.stdout.flush()
+        saved = os.dup(1)
+        with open(captured, "w") as fh:
+            os.dup2(fh.fileno(), 1)
+            try:
+                rc = remote.twinrun(driver, ip="localhost", port=port,
+                                    calculator=script, device=device,
+                                    args=(learned, str(port), device,
+                                          "twin_configs.extxyz"))
+            finally:
+                sys.stdout.flush()
+                os.dup2(saved, 1)
+                os.close(saved)
+        wall = time.time() - t0
+        text = open(captured).read()
+        for line in text.splitlines():
+            log(f"  twin: {line[:300]}")
+        check("(d) twinrun's exit code", rc, "0", rc == 0)
+        lines = [ln for ln in text.splitlines() if ln.startswith("TWIN ")]
+        check("(d) the driver's numbers line", len(lines), "1",
+              len(lines) == 1)
+        twin = json.loads(lines[0][5:])
+        oracle = MixtureLennardJones(otf_mod.EPS, otf_mod.SIG, rc=otf_mod.RC)
+        ref = [oracle.calculate(c)["energy"] for c in configs]
+        got_e = np.array([r["e_fp"] for r in twin["rows"]])
+        rel = float(np.abs(got_e - np.array(ref)).max()
+                    / np.abs(np.array(ref)).max())
+        check("(d) the oracle through the socket vs in-process", f"{rel:.3e} "
+              "of the largest value", "<= 1e-10", rel <= 1e-10)
+        nconf = caps["twin_configs"]
+        check("(d) the driver's launches on the card", twin["launches"],
+              f"{nconf} of each (one per evaluation)",
+              all(v == nconf for v in twin["launches"].values()))
+        served = (otf["served_ndata"], otf["served_m"])
+        check("(d) the driver served phase 5's model: (ndata, m)",
+              tuple(twin["size"]), f"{served}", tuple(twin["size"]) == served)
+        paths["twin"] = twin["launches"]
+        pids = remote.port_pids(port)
+        lsof = shutil.which("lsof") is not None
+        if lsof:
+            check("(d) the port is free after the twin run", pids, "[]",
+                  pids == [])
+        numbers["twin"] = dict(twin, rel_err=rel, wall_s=wall,
+                               lsof=lsof, port_pids=pids)
+        log(f"periphery (d) twinrun [{card}]: {wall:.1f} s for the two "
+            f"processes (the driver ready after {twin['ready_s']:.1f} s, "
+            f"done after {twin['wall_s']:.1f} s of its own)")
+
+        # (e) phase 5's active.log, a figure, and frames of phase 4's MD
+        t0 = time.time()
+        d = parse_logfile(os.path.join(cwd, OTF_LOG))
+        sizes = (int(d["data"][-1, 1]), int(d["inducing"][-1, 1]))
+        check("(e) the last parsed (ndata, m) of phase 5's active.log",
+              sizes, f"{served} (phase 5's served model)", sizes == served)
+        if importlib.util.find_spec("matplotlib") is None:
+            # the figure is host-only; the CPU tests draw it
+            png = None
+            log("periphery (e) log_to_figure left out: matplotlib is not "
+                "installed where this runs")
+        else:
+            log_to_figure(os.path.join(cwd, OTF_LOG), save="otf_dash.png")
+            png = os.path.getsize("otf_dash.png") if os.path.isfile(
+                "otf_dash.png") else 0
+            check("(e) log_to_figure wrote a PNG", f"{png} bytes", "> 0",
+                  png > 0)
+        frames = []
+        for _ in range(4):
+            serving.run(10)
+            frames.append(serving.system.copy())
+        ta = TrajAnalyser(frames)
+        msd = ta.msd()
+        r, g = rdf(frames, rmax=5.0, bins=100)
+        finite = bool(np.isfinite(msd).all() and all(
+            np.isfinite(v).all() for v in g.values()))
+        check("(e) TrajAnalyser and rdf on phase 4's MD frames finite",
+              f"msd {msd[-1]:.3e} A^2, g(r) peak at "
+              f"{r[np.argmax(g[(29, 29)])]:.3f} A", "finite", finite)
+        numbers["logs"] = dict(
+            rows={k: len(v) for k, v in d.items()}, last_sizes=sizes,
+            png_bytes=png, msd=float(msd[-1]),
+            rdf_peak=float(r[np.argmax(g[(29, 29)])]),
+            wall_s=time.time() - t0)
+
+        # (b) the 2 x 2 dry run, while the budget allows
+        left = caps["budget"] - (time.time() - t_phase)
+        if left >= caps["dryrun4_before"]:
+            db.reset_launches()
+            dryrun(4)
+            paths["dryrun"] = {k: v + paths["dryrun"][k]
+                               for k, v in db.launches().items()}
+            db.reset_launches()
+        else:
+            log(f"periphery (b) dryrun_multichip(4) left out: {left:.1f} s "
+                f"of the budget left (needs {caps['dryrun4_before']:g})")
+    finally:
+        os.chdir(cwd)
+    numbers["wall_s"] = time.time() - t_phase
+    log(f"phase 13 (a-e) took {numbers['wall_s']:.1f} s (budget "
+        f"{caps['budget']:.0f} s)")
+    return paths, numbers
 
 
 def phase_profile(dyn, ms_per_step, card):
@@ -2759,18 +3189,22 @@ def run_phases(torch):
     off_launches, off_numbers = phase_offline(
         os.path.join(bcm_dir, "bcm_1.pckl"), make_lgps_system, card)
     took(11)
-    mesh_launches, mesh_numbers, mesh_shard = phase_mesh(bcm_calc, card)
+    mesh_launches, mesh_numbers, mesh_shard = phase_mesh(
+        bcm_calc, os.path.join(bcm_dir, "bcm_1.pckl"), card)
     del bcm_calc
     # both kernels at one data shard's rows of the MD bucket
     worst.update(phase_kernels({"mesh_shard": mesh_shard + (both,)}))
     timing["mesh_shard"] = mesh_shard
     took("12 with its kernel checks")
+    peri_launches, peri_numbers = phase_periphery(
+        os.path.join(bcm_dir, "bcm_1.pckl"), make_lgps_system, dyn, otf, card)
+    took(13)
     rows = phase_timings(timing, worst, {"md": launches, "otf": otf_launches,
                                          **driver_launches,
                                          "kb_jac": jac_launches,
                                          **ks_launches, **bcm_launches,
                                          **ens_launches, **off_launches,
-                                         **mesh_launches},
+                                         **mesh_launches, **peri_launches},
                          card)
     rates.sort()
     phase_profile(dyn, 1.0 / rates[1] * 1e3, card)
@@ -2786,6 +3220,7 @@ def run_phases(torch):
     print(json.dumps({"replicas_meta_multitask_parametric": ens_numbers}))
     print(json.dumps({"offline_oracle": off_numbers}))
     print(json.dumps({"mesh": mesh_numbers}, default=str))
+    print(json.dumps({"periphery": peri_numbers}, default=str))
     log(f"chip_smoke took {time.time() - t_all:.1f} s after the card check "
         f"(ceiling 1000 s)")
     print(json.dumps({"kernels": rows}))

@@ -272,3 +272,44 @@ def test_emt_matches_jax(case):
     assert abs(got["energy"] - ref["energy"]) <= 1e-10
     np.testing.assert_allclose(got["forces"], ref["forces"], rtol=0, atol=1e-10)
     np.testing.assert_allclose(got["stress"], ref["stress"], rtol=0, atol=1e-10)
+
+
+def test_log_parse_matches_jax(runs):
+    """``analysis.logs.parse_logfile`` of the port's active.log against the
+    JAX package's parse of its own log from the same run: the same
+    inducing, data and fit rows, energies within the run's tolerance."""
+    from autoforce_tpu.analysis.logs import parse_logfile as jax_parse
+    from autoforce_tpu_torch.analysis.logs import log_to_figure, parse_logfile
+
+    jd = jax_parse(os.path.join(runs["jax"][0], "active.log"))
+    td = parse_logfile(os.path.join(runs["torch"][0], "active.log"))
+    assert set(td) == set(jd)
+    for key in ("inducing", "data", "fit"):
+        np.testing.assert_array_equal(td[key], jd[key], err_msg=key)
+    assert len(td["inducing"]) >= 2 and len(td["fit"]) >= 1
+    assert tuple(td["data"][-1, 1:]) + tuple(td["inducing"][-1, 1:]) == tuple(
+        runs["torch"][1].size)
+    for key in ("energy", "covloss", "exact", "test_errors"):
+        assert td[key].shape == jd[key].shape, key
+        if len(td[key]):
+            np.testing.assert_array_equal(td[key][:, 0], jd[key][:, 0])
+            np.testing.assert_allclose(td[key][:, 1:], jd[key][:, 1:],
+                                       rtol=0, atol=1e-8, err_msg=key)
+    assert len(td["energy"]) >= 1
+    fig = log_to_figure(os.path.join(runs["torch"][0], "active.log"),
+                        save=os.path.join(runs["torch"][0], "dash.png"))
+    assert fig is not None and os.path.isfile(
+        os.path.join(runs["torch"][0], "dash.png"))
+
+
+def test_logs_cli_writes_the_dashboard(runs, tmp_path, monkeypatch, capsys):
+    """``python -m autoforce_tpu_torch.analysis.logs active.log -o ...``."""
+    from autoforce_tpu_torch.analysis import logs
+
+    out = str(tmp_path / "dash.png")
+    monkeypatch.setattr("sys.argv", ["logs", os.path.join(runs["torch"][0],
+                                                          "active.log"),
+                                     "-o", out])
+    logs.main()
+    assert os.path.getsize(out) > 0
+    assert capsys.readouterr().out.strip() == f"saved {out}"

@@ -691,3 +691,30 @@ def test_sharded_md_chunk_on_card_never_waits(cuda):
                          check_beta=False)._new_chain()
     errs = mc.eval_diff(chain, mesh, plain.engine)
     assert not mc.within(errs), errs
+
+
+@pytest.mark.parametrize("thermostat", ["langevin", "nhc"])
+def test_padded_mesh_md_on_card_matches_unsharded(cuda, thermostat):
+    """A 3 x 1 mesh of the card repeated pads 256 rows to 258: DeviceMD
+    (0.3 A skin, 900 K, one 20-step chunk with in-loop breaches) under it
+    against the unsharded driver from the same state and noise, float32
+    through the kernels: equal breach reads, forces within MESH_F_TOL of
+    the largest slot term, positions within traj_bound
+    (tools/mesh_checks.py)."""
+    from autoforce_tpu_torch.parallel import make_mesh
+    from autoforce_tpu_torch.system import bulk_fcc
+    from autoforce_tpu_torch.tools import mesh_checks as mc
+
+    def cu256():
+        s = bulk_fcc("Cu", 3.6).repeat((4, 4, 4))
+        s.rattle(0.05, seed=1)
+        return s
+
+    mesh = make_mesh(3, 1, devices=["cuda:0"] * 3)
+    r = mc.padded_md(MODEL, mesh, thermostat, temperature_K=900.0,
+                     system=cu256)
+    assert r["rows"] == 256 and r["mesh_rows"] == 258, r
+    assert r["steps"] == (20, 20) and r["chunks"][0] == r["chunks"][1], r
+    assert r["breach_reads"][0] == r["breach_reads"][1] > 0, r
+    assert not mc.within(dict(f=r["f"])), r
+    assert r["dpos"] <= r["dpos_bound"], r

@@ -492,3 +492,41 @@ def test_fvqr_projection_rejects_an_overflowed_residual():
     model._fvqr["R"] = np.linalg.qr(K)[1]
     r, rho, zeta = model._fvqr_project_on(K, rng.normal(size=12))
     assert np.isfinite(r).all() and np.isfinite(rho) and rho > 0
+
+
+@pytest.mark.parametrize("kind", ["rbf", "logrbf"])
+@pytest.mark.parametrize("factor, n, eta", [(None, 2, 1), ("polycut", 2, 1),
+                                            ("polycut", 3, 1),
+                                            ("repulsive", 2, 2)])
+def test_pair_factor_grads_match_forward_mode(kind, factor, n, eta):
+    """The pair term's closed-form psi'(d) and fac'(d) (the backward of the
+    pair Gram) against forward-mode AD of ``_psi`` / ``_factor``, on
+    distances past both clamps and the cutoff; and the same values from
+    four threads at once (on a mesh of several cards autograd runs one
+    backward thread per card)."""
+    import threading
+
+    term = tpk.PairTerm(a=3, b=16, kind=kind, factor=factor, rc=4.0,
+                        factor_n=n, eta=eta)
+    d = torch.cat([torch.linspace(1e-13, 7.0, 4001, dtype=torch.float64),
+                   torch.tensor([0.0, 1e-12, 5e-7, 1e-6, 4.0],
+                                dtype=torch.float64)])
+    one = torch.ones_like(d)
+    _, p0 = torch.func.jvp(lambda x: tpk._psi(x, term), (d,), (one,))
+    _, f0 = torch.func.jvp(lambda x: tpk._factor(x, term), (d,), (one,))
+    p1, f1 = tpk.psi_factor_grads(d, term)
+    np.testing.assert_allclose(p1.numpy(), p0.numpy(), rtol=1e-14, atol=0)
+    np.testing.assert_allclose(f1.numpy(), f0.numpy(), rtol=1e-14,
+                               atol=1e-14 * f0.abs().max().item())
+    out = [None] * 4
+
+    def run(k):
+        out[k] = tpk.psi_factor_grads(d, term)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for p, f in out:
+        assert torch.equal(p, p1) and torch.equal(f, f1)

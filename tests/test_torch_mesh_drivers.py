@@ -146,6 +146,89 @@ def test_device_npt_with_mesh(folder):
     assert np.abs(c1 - np.asarray(cu_box().cell)).max() > 1e-8
 
 
+@pytest.mark.parametrize("driver", ["langevin", "npt"])
+def test_sharded_chunks_carry_no_graph(folder, driver, monkeypatch):
+    """After sharded DeviceMD / DeviceNPT chunks no tensor carried from one
+    chunk iteration to the next (a chunk's outputs, a force evaluation's
+    outputs, the driver's chain state) has a grad_fn or requires grad; and
+    the tensor the shards copy is a view of the position leaf, not the
+    leaf: the leaf's gradient then arrives from an op on its own device,
+    never from the backward of a copy on another device (on distinct
+    cards torch reports that as an AccumulateGrad stream mismatch)."""
+    import autoforce_tpu_torch.md.device_npt as dnpt
+
+    carried, handed = [], []
+    chunk = dmd.md_chunk if driver == "langevin" else dnpt.md_chunk_npt
+    module = dmd if driver == "langevin" else dnpt
+
+    def recorded_chunk(*a, **k):
+        out = chunk(*a, **k)
+        carried.extend(out)
+        return out
+
+    make = pm._sharded_forces_fn if driver == "langevin" else \
+        pm._sharded_forces_virial_fn
+    name = make.__name__
+
+    def recorded_make(*a, **k):
+        fn = make(*a, **k)
+
+        def forces_fn(*x, **y):
+            out = fn(*x, **y)
+            carried.extend(out)
+            return out
+
+        return forces_fn
+
+    psum = pm._psum_energy
+
+    def recorded_psum(sh, pos, *a, **k):
+        handed.append(pos)
+        return psum(sh, pos, *a, **k)
+
+    monkeypatch.setattr(module, chunk.__name__, recorded_chunk)
+    monkeypatch.setattr(pm, name, recorded_make)
+    monkeypatch.setattr(pm, "_psum_energy", recorded_psum)
+    calc = calc_of(folder, (2, 2))
+    s = cu_box(rattle=0.04, temperature=800)
+    s.calc = calc
+    if driver == "npt":
+        dyn = DeviceNPT(s, calc, 2.5 * FS, temperature_K=500,
+                        pressure_GPa=0.5, tdamp=50 * FS, pdamp=150 * FS,
+                        chunk=5, check_beta=False, isotropic=False)
+    else:
+        dyn = DeviceMD(s, calc, dt=3 * FS, temperature_K=600, chunk=5,
+                       seed=1, check_beta=False, thermostat="nhc")
+    dyn.run(15)
+    assert dyn.nsteps == 15 and handed and carried
+
+    def tensors(x):
+        if torch.is_tensor(x):
+            yield x
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                yield from tensors(y)
+        elif isinstance(x, dict):
+            for y in x.values():
+                yield from tensors(y)
+        elif hasattr(x, "_fields"):
+            yield from tensors(tuple(x))
+
+    state = [vars(dyn)[k] for k in vars(dyn) if k != "system"]
+    live = [x for x in tensors(carried + state)
+            if x.requires_grad or x.grad_fn is not None]
+    assert not live, [(tuple(x.shape), x.grad_fn) for x in live]
+    # every sharded energy (the drivers' closures and the first predict):
+    # the positions handed to the shards come from an op on the leaf's
+    # device, whose input is the leaf
+    for pos in handed:
+        assert pos.grad_fn is not None, "the shards copy the leaf itself"
+        leaves = [f for f, _ in pos.grad_fn.next_functions
+                  if type(f).__name__ == "AccumulateGrad"]
+        assert leaves and all(f.variable.device == pos.device
+                              for f in leaves)
+
+
 @pytest.mark.parametrize("driver", ["langevin", "nhc", "npt"])
 def test_drivers_on_a_mesh_that_adds_rows(folder, driver, monkeypatch):
     """A 3 x 1 mesh pads the box's 32 rows to 33.  The padding row weighs

@@ -72,6 +72,7 @@ from .pairkernels import (
     psi_factor_grads,
     stage_env_pairs,
 )
+from .profiling import span
 
 
 class ConfigArrays(NamedTuple):
@@ -846,22 +847,24 @@ def device_fetch(*tensors):
     """Pull several device tensors to the host in ONE transfer: flatten and
     concatenate on the device (as float64, which holds every int32 value
     exactly), one copy, split on the host and cast back."""
-    for t in tensors:
-        if t.dtype == torch.int64:
-            raise TypeError("device_fetch: int64 payloads do not survive the "
-                            "float64 buffer; fetch them separately")
-    if len(tensors) == 1:
-        return [tensors[0].detach().cpu().numpy()]
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors])
-    buf = flat.cpu().numpy()
-    out = []
-    o = 0
-    for t in tensors:
-        n = t.numel()
-        dt = np.dtype(str(t.dtype).replace("torch.", ""))
-        out.append(buf[o:o + n].astype(dt).reshape(tuple(t.shape)))
-        o += n
-    return out
+    with span("af.host_read"):
+        for t in tensors:
+            if t.dtype == torch.int64:
+                raise TypeError("device_fetch: int64 payloads do not survive "
+                                "the float64 buffer; fetch them separately")
+        if len(tensors) == 1:
+            return [tensors[0].detach().cpu().numpy()]
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
+                          for t in tensors])
+        buf = flat.cpu().numpy()
+        out = []
+        o = 0
+        for t in tensors:
+            n = t.numel()
+            dt = np.dtype(str(t.dtype).replace("torch.", ""))
+            out.append(buf[o:o + n].astype(dt).reshape(tuple(t.shape)))
+            o += n
+        return out
 
 
 def voigt6(t):

@@ -57,6 +57,7 @@ import torch
 from .. import units
 from ..engine import ConfigArrays, ModelArrays, _total_cov, device_fetch
 from ..kernels import covloss_beta, covloss_bias
+from ..profiling import span
 
 
 _W3 = 1.0 / (2.0 - 2.0 ** (1.0 / 3.0))
@@ -117,35 +118,37 @@ def _sgpr_forces(pos, cfg, model, radii, vscale_atom, params, exponent,
     backward gives the biased forces and the step launches each SOAP kernel
     once.  ``meta_vs`` maps a species without a scale to 0, the host meta
     convention, not to :data:`VS_UNSEEN`."""
-    k = nimg or 1
-    if mean_e is not None:
+    with span("af.forces"):
+        k = nimg or 1
+        if mean_e is not None:
+            with torch.enable_grad():
+                p = pos.detach().requires_grad_(True)
+                e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
+                                       vscale_atom, mean_e, params, exponent,
+                                       ks, nimg=k, meta_scale=meta_scale,
+                                       meta_vs=meta_vs)
+                (g,) = torch.autograd.grad(e.sum(), p)
+            f = -g * cfg.atom_mask[:, None]
+            e, bmax = e.detach(), _floor_max(bmax, check_beta)
+            return (e, f, bmax) if nimg else (e[0], f, bmax[0])
         with torch.enable_grad():
             p = pos.detach().requires_grad_(True)
-            e, bmax = _committee_e(p, cfg.cell, cfg, model, radii,
-                                   vscale_atom, mean_e, params, exponent, ks,
-                                   nimg=k, meta_scale=meta_scale,
-                                   meta_vs=meta_vs)
+            cov, lone, alpha = _total_cov(
+                p, cfg.cell, cfg, model.X_desc, model.X_num, model.X_lone,
+                radii, params, exponent, use_rev=True, ks=ks,
+                pair_d=model.pair_d, pair_mask=model.pair_mask,
+            )
+            cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
+            e = cov @ model.mu
+            e = e.reshape(k, -1).sum(1) if nimg else e.sum()
+            if meta_scale is not None:
+                e = e - meta_scale * covloss_bias(model.choli, cov, meta_vs,
+                                                  cfg.atom_mask)
             (g,) = torch.autograd.grad(e.sum(), p)
         f = -g * cfg.atom_mask[:, None]
-        e, bmax = e.detach(), _floor_max(bmax, check_beta)
-        return (e, f, bmax) if nimg else (e[0], f, bmax[0])
-    with torch.enable_grad():
-        p = pos.detach().requires_grad_(True)
-        cov, lone, alpha = _total_cov(
-            p, cfg.cell, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True, ks=ks,
-            pair_d=model.pair_d, pair_mask=model.pair_mask,
-        )
-        cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
-        e = cov @ model.mu
-        e = e.reshape(k, -1).sum(1) if nimg else e.sum()
-        if meta_scale is not None:
-            e = e - meta_scale * covloss_bias(model.choli, cov, meta_vs,
-                                              cfg.atom_mask)
-        (g,) = torch.autograd.grad(e.sum(), p)
-    f = -g * cfg.atom_mask[:, None]
-    return e.detach(), f, _beta_max(cov.detach(), cfg, model, vscale_atom,
-                                    alpha, check_beta, pos, nimg)
+        return e.detach(), f, _beta_max(cov.detach(), cfg, model,
+                                        vscale_atom, alpha, check_beta, pos,
+                                        nimg)
 
 
 def _committee_e(p, cell, cfg, models, radii, vscale_atoms, mean_e, params,
@@ -275,32 +278,33 @@ def _inloop_table(cfg, rebuild, rebuild_cut, sidx_atom, sidx_ok, nrep=1):
     off_dtype = cfg.nbr_off.dtype
 
     def rebuild_fn(pos, cell=None):
-        cell = cfg.cell if cell is None else cell
-        if nrep == 1:
-            idx, off, mask, kmax, off_over = device_neighbor_table(
-                pos, cell, cfg.atom_mask, rebuild_cut, kpad)
-        else:
-            n = pos.shape[0] // nrep
-            idx, off, mask, kmax, off_over = device_neighbor_table(
-                pos.reshape(nrep, n, 3), cell,
-                cfg.atom_mask.reshape(nrep, n), rebuild_cut, kpad)
-            block = torch.arange(nrep, dtype=idx.dtype, device=idx.device)
-            idx = (idx + n * block[:, None, None]).reshape(nrep * n, kpad)
-            off = off.reshape(nrep * n, kpad, 3)
-            mask = mask.reshape(nrep * n, kpad)
-        off = off.to(off_dtype)
-        sx = sidx_atom[idx.long()]
-        mask = mask & sidx_ok[idx.long()]
-        ok = (kmax <= kpad) & ~off_over
-        tbl = (idx, off, sx, mask)
-        if use_rev:
-            rev = reverse_slots(idx, off, mask)
-            # an asymmetric table would silently drop force contributions
-            # in the reverse-slot backward (cannot happen for the MIC
-            # builder, but guarded like make_config)
-            ok = ok & ~torch.any(mask & (rev < 0))
-            tbl = tbl + (rev,)
-        return tbl, ok
+        with span("af.rebuild"):
+            cell = cfg.cell if cell is None else cell
+            if nrep == 1:
+                idx, off, mask, kmax, off_over = device_neighbor_table(
+                    pos, cell, cfg.atom_mask, rebuild_cut, kpad)
+            else:
+                n = pos.shape[0] // nrep
+                idx, off, mask, kmax, off_over = device_neighbor_table(
+                    pos.reshape(nrep, n, 3), cell,
+                    cfg.atom_mask.reshape(nrep, n), rebuild_cut, kpad)
+                block = torch.arange(nrep, dtype=idx.dtype, device=idx.device)
+                idx = (idx + n * block[:, None, None]).reshape(nrep * n, kpad)
+                off = off.reshape(nrep * n, kpad, 3)
+                mask = mask.reshape(nrep * n, kpad)
+            off = off.to(off_dtype)
+            sx = sidx_atom[idx.long()]
+            mask = mask & sidx_ok[idx.long()]
+            ok = (kmax <= kpad) & ~off_over
+            tbl = (idx, off, sx, mask)
+            if use_rev:
+                rev = reverse_slots(idx, off, mask)
+                # an asymmetric table would silently drop force contributions
+                # in the reverse-slot backward (cannot happen for the MIC
+                # builder, but guarded like make_config)
+                ok = ok & ~torch.any(mask & (rev < 0))
+                tbl = tbl + (rev,)
+            return tbl, ok
 
     tbl0 = (cfg.nbr_idx, cfg.nbr_off, cfg.nbr_sidx, cfg.nbr_mask)
     if use_rev:
@@ -405,34 +409,41 @@ def drive(state, step, go, nsteps, rebuild=None):
     breached state and the forces recomputed with it — what the JAX
     loop's in-loop ``lax.cond`` rebuild yields — and stepping resumes.
     ``ok`` still down with no step since the last rebuild means that the
-    rebuild failed: the loop ends and the host path takes over."""
+    rebuild failed: the loop ends and the host path takes over.
+
+    Under a torch profiler the loop is the span ``af.chunk`` and each
+    issued iteration, committed or not, an ``af.step``
+    (:func:`..profiling.span`)."""
     dev = state["i"].device
     it = 0  # iterations issued: committed steps are a prefix of them
     rebuilt_at = 0  # committed-step count of the last rebuild
-    while True:
-        watch = _FlagWatch(dev, nsteps + 1)
-        active = go(state)
-        watch.push(0, active)
-        while it < nsteps:
-            if watch.dropped():
-                break
-            new = step(state, it)
-            for k, v in new.items():
-                state[k] = _where(active, v, state[k])
-            state["i"] = state["i"] + active.to(state["i"].dtype)
+    with span("af.chunk"):
+        while True:
+            watch = _FlagWatch(dev, nsteps + 1)
             active = go(state)
-            it += 1
-            watch.push(it, active)
-        if rebuild is None:
-            break
-        with host_read():
-            ok_h, i_h = device_fetch(state["ok"], state["i"].to(torch.int32))
-            if bool(ok_h) or int(i_h) == rebuilt_at:
+            watch.push(0, active)
+            while it < nsteps:
+                if watch.dropped():
+                    break
+                with span("af.step"):
+                    new = step(state, it)
+                    for k, v in new.items():
+                        state[k] = _where(active, v, state[k])
+                    state["i"] = state["i"] + active.to(state["i"].dtype)
+                    active = go(state)
+                    it += 1
+                    watch.push(it, active)
+            if rebuild is None:
                 break
-            state.update(rebuild(state))
-        rebuilt_at = it = int(i_h)
-        if it >= nsteps:
-            break
+            with host_read():
+                ok_h, i_h = device_fetch(state["ok"],
+                                         state["i"].to(torch.int32))
+                if bool(ok_h) or int(i_h) == rebuilt_at:
+                    break
+                state.update(rebuild(state))
+            rebuilt_at = it = int(i_h)
+            if it >= nsteps:
+                break
     return state
 
 
@@ -558,11 +569,12 @@ def _chunk_loop(forces_fn, pos_init, amask, velocities, masses, pos0, dt, kT,
 
     st = dict(pos=pos_init, vel=velocities, tbl=tbl, pos0=pos0,
               i=torch.zeros((), dtype=torch.int64, device=dev))
-    if rebuild_fn is not None:
-        st.update(with_rebuild(pos_init, tbl, pos0))
-    else:
-        st["ok"] = ~breach(pos_init, pos0)
-    st["e"], st["f"], st["beta"] = forces_fn(pos_init, st["tbl"])
+    with span("af.chunk_start"):
+        if rebuild_fn is not None:
+            st.update(with_rebuild(pos_init, tbl, pos0))
+        else:
+            st["ok"] = ~breach(pos_init, pos0)
+        st["e"], st["f"], st["beta"] = forces_fn(pos_init, st["tbl"])
     if nhc is not None:
         st.update(vxi=nhc[2], xi=nhc[3])
     go = _go(nsteps, beta_thresh if check_beta else None)

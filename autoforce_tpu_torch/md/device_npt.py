@@ -33,6 +33,7 @@ import torch
 from .. import units
 from ..engine import _total_cov, device_fetch
 from ..neighbors_device import det3
+from ..profiling import span
 from .device_md import (_beta_max, _committee_e, _floor_max, _go, _graft,
                         _inloop_table, _nhc_half, _where, check_plain_surface,
                         drive, mesh_chain, new_chain, padded_rows)
@@ -148,36 +149,39 @@ def _sgpr_forces_virial(pos, cell, cfg, model, radii, vscale_atom, params,
     gradient of its weighted energy gives the committee forces and
     virial, as the host combines the experts' virials with the same
     weights."""
-    with torch.enable_grad():
-        p = pos.detach().requires_grad_(True)
-        eps = torch.zeros((3, 3) if aniso else (), dtype=pos.dtype,
-                          device=pos.device, requires_grad=True)
-        if aniso:
-            sc = torch.eye(3, dtype=p.dtype, device=p.device) + eps
-            p_s, cell_s = p @ sc.T, cell @ sc.T
-        else:
-            p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
-        if mean_e is not None:
-            e, bmax = _committee_e(p_s, cell_s, cfg, model, radii,
-                                   vscale_atom, mean_e, params, exponent, ks)
-            g, deps = torch.autograd.grad(e.sum(), (p, eps))
+    with span("af.forces"):
+        with torch.enable_grad():
+            p = pos.detach().requires_grad_(True)
+            eps = torch.zeros((3, 3) if aniso else (), dtype=pos.dtype,
+                              device=pos.device, requires_grad=True)
             if aniso:
-                deps = 0.5 * (deps + deps.T)
-            return (e[0].detach(), -g * cfg.atom_mask[:, None], deps,
-                    _floor_max(bmax[0], check_beta))
-        cov, lone, alpha = _total_cov(
-            p_s, cell_s, cfg, model.X_desc, model.X_num, model.X_lone,
-            radii, params, exponent, use_rev=True, ks=ks,
-            pair_d=model.pair_d, pair_mask=model.pair_mask,
-        )
-        cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
-        e = (cov @ model.mu).sum()
-        g, deps = torch.autograd.grad(e, (p, eps))
-    if aniso:
-        deps = 0.5 * (deps + deps.T)
-    f = -g * cfg.atom_mask[:, None]
-    return e.detach(), f, deps, _beta_max(cov.detach(), cfg, model,
-                                          vscale_atom, alpha, check_beta, pos)
+                sc = torch.eye(3, dtype=p.dtype, device=p.device) + eps
+                p_s, cell_s = p @ sc.T, cell @ sc.T
+            else:
+                p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
+            if mean_e is not None:
+                e, bmax = _committee_e(p_s, cell_s, cfg, model, radii,
+                                       vscale_atom, mean_e, params, exponent,
+                                       ks)
+                g, deps = torch.autograd.grad(e.sum(), (p, eps))
+                if aniso:
+                    deps = 0.5 * (deps + deps.T)
+                return (e[0].detach(), -g * cfg.atom_mask[:, None], deps,
+                        _floor_max(bmax[0], check_beta))
+            cov, lone, alpha = _total_cov(
+                p_s, cell_s, cfg, model.X_desc, model.X_num, model.X_lone,
+                radii, params, exponent, use_rev=True, ks=ks,
+                pair_d=model.pair_d, pair_mask=model.pair_mask,
+            )
+            cov = cov * (cfg.atom_mask[:, None] & model.m_mask[None, :])
+            e = (cov @ model.mu).sum()
+            g, deps = torch.autograd.grad(e, (p, eps))
+        if aniso:
+            deps = 0.5 * (deps + deps.T)
+        f = -g * cfg.atom_mask[:, None]
+        return e.detach(), f, deps, _beta_max(cov.detach(), cfg, model,
+                                              vscale_atom, alpha, check_beta,
+                                              pos)
 
 
 def md_chunk_npt(
@@ -375,13 +379,14 @@ def _npt_loop(forces_fn, positions, amask, velocities, masses, pos0, cell0,
     st = dict(pos=positions, vel=velocities, cell=cell0, vxi=vxi2, xi=xi2,
               vg=vg, tbl=tbl0, pos0=pos0, tcell=tbl_cell, omax=offmax,
               i=torch.zeros((), dtype=torch.int64, device=positions.device))
-    if rebuild_fn is not None:
-        st.update(with_rebuild(positions, cell0, tbl0, pos0, tbl_cell,
-                               offmax))
-    else:
-        st["ok"] = ~breach(positions, pos0, cell0, tbl_cell, offmax)
-    e, f, deps, beta = forces_fn(positions, cell0, st["tbl"])
-    st.update(e=e, f=f, deps=deps, beta=beta)
+    with span("af.chunk_start"):
+        if rebuild_fn is not None:
+            st.update(with_rebuild(positions, cell0, tbl0, pos0, tbl_cell,
+                                   offmax))
+        else:
+            st["ok"] = ~breach(positions, pos0, cell0, tbl_cell, offmax)
+        e, f, deps, beta = forces_fn(positions, cell0, st["tbl"])
+        st.update(e=e, f=f, deps=deps, beta=beta)
     go = _go(nsteps, beta_thresh if check_beta else None)
     return drive(st, step, go, nsteps,
                  rebuild=rebuild if rebuild_fn is not None else None)

@@ -34,6 +34,7 @@ from ..md.device_md import (_go, _graft, _inloop_table, _sgpr_forces,
 from ..md.device_npt import (_sgpr_forces_virial, _table_omax,
                              moving_skin_table)
 from ..neighbors_device import det3, inv3
+from ..profiling import span
 
 
 def _fire_update(f, v, dt, a, n_uphill, fire, m, extra=()):
@@ -182,11 +183,12 @@ def _fire_loop(forces_fn, positions, amask, v, pos0, dt, a, n_uphill,
     st = dict(pos=positions, v=v, dt=dt, a=a, nu=n_uphill, tbl=tbl0,
               pos0=pos0,
               i=torch.zeros((), dtype=torch.int64, device=positions.device))
-    if rebuild_fn is not None:
-        st.update(with_rebuild(positions, tbl0, pos0))
-    else:
-        st["ok"] = ~breach(positions, pos0)
-    st.update(forces(positions, st["tbl"]))
+    with span("af.chunk_start"):
+        if rebuild_fn is not None:
+            st.update(with_rebuild(positions, tbl0, pos0))
+        else:
+            st["ok"] = ~breach(positions, pos0)
+        st.update(forces(positions, st["tbl"]))
     go = _go(nsteps, beta_thresh if check_beta else None, fmax_target)
     return drive(st, step, go, nsteps,
                  rebuild=rebuild if rebuild_fn is not None else None)
@@ -341,11 +343,13 @@ def _fire_cell_loop(forces_fn, positions, amask, v, v_def, deform, cell0,
               nu=n_uphill, tbl=tbl0, pos0=pos0, tcell=tbl_cell, omax=offmax,
               i=torch.zeros((), dtype=torch.int64, device=positions.device))
     cell = cell0 @ deform.T
-    if rebuild_fn is not None:
-        st.update(with_rebuild(positions, cell, tbl0, pos0, tbl_cell, offmax))
-    else:
-        st["ok"] = ~breach(positions, pos0, cell, tbl_cell, offmax)
-    st.update(eval_all(st["pu"], st["defc"], st["tbl"]))
+    with span("af.chunk_start"):
+        if rebuild_fn is not None:
+            st.update(with_rebuild(positions, cell, tbl0, pos0, tbl_cell,
+                                   offmax))
+        else:
+            st["ok"] = ~breach(positions, pos0, cell, tbl_cell, offmax)
+        st.update(eval_all(st["pu"], st["defc"], st["tbl"]))
     go = _go(nsteps, beta_thresh if check_beta else None, fmax_target)
     return drive(st, step, go, nsteps,
                  rebuild=rebuild if rebuild_fn is not None else None)

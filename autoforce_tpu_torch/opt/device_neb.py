@@ -36,6 +36,7 @@ from ..md.device_md import (VS_UNSEEN, _go, _sgpr_forces,
                             check_plain_surface, committee_models,
                             committee_stack, drive, skin_table,
                             stack_images)
+from ..profiling import span
 from .device_fire import _fire_update
 
 
@@ -200,10 +201,11 @@ def _neb_loop(forces_int, positions, e_end, b_end, amask, v, pos0, dt, a,
         out.update(pos=pos, v=v, dt=dt, a=a, nu=nu, ok=~breach(pos, pos0))
         return out
 
-    st = dict(pos=positions, v=v, dt=dt, a=a, nu=n_uphill,
-              ok=~breach(positions, pos0),
-              i=torch.zeros((), dtype=torch.int64, device=dev))
-    st.update(neb_forces(positions))
+    with span("af.chunk_start"):
+        st = dict(pos=positions, v=v, dt=dt, a=a, nu=n_uphill,
+                  ok=~breach(positions, pos0),
+                  i=torch.zeros((), dtype=torch.int64, device=dev))
+        st.update(neb_forces(positions))
     go = _go(nsteps, beta_thresh if check_beta else None, fmax_target)
     return drive(st, step, go, nsteps)
 

@@ -64,6 +64,7 @@ from ..engine import (ConfigArrays, LceRows, ModelArrays, kernel_block_fn,
 from ..kernels import covloss_beta, covloss_bias
 from ..md.device_md import _graft
 from ..md.device_npt import offsum_max
+from ..profiling import span
 
 
 class Mesh:
@@ -586,17 +587,21 @@ def _sharded_inloop(sh: Shards, atom_mask, rebuild, rebuild_cut, sidx_atom,
            sidx_ok.to(mesh.devices[d, 0])) for d in range(mesh.shape["data"])]
 
     def rebuild_fn(pos, cell=None):
-        tbls, oks = [], []
-        for d, c in enumerate(sh.cfgs):
-            dev = mesh.devices[d, 0]
-            cand_d, sx_d, ok_d = on[d]
-            idx, off, mask, kmax, over = device_neighbor_table(
-                pos.to(dev), c.cell if cell is None else cell.to(dev), cand_d,
-                rebuild_cut, kpad, row_ids=sh.oidx[d], row_mask=c.atom_mask)
-            li = idx.long()
-            tbls.append((idx, off.to(off_dtype), sx_d[li], mask & ok_d[li]))
-            oks.append((kmax <= kpad) & ~over)
-        return tuple(tbls), torch.stack([o.to(mesh.first) for o in oks]).all()
+        with span("af.rebuild"):
+            tbls, oks = [], []
+            for d, c in enumerate(sh.cfgs):
+                dev = mesh.devices[d, 0]
+                cand_d, sx_d, ok_d = on[d]
+                idx, off, mask, kmax, over = device_neighbor_table(
+                    pos.to(dev), c.cell if cell is None else cell.to(dev),
+                    cand_d, rebuild_cut, kpad, row_ids=sh.oidx[d],
+                    row_mask=c.atom_mask)
+                li = idx.long()
+                tbls.append((idx, off.to(off_dtype), sx_d[li],
+                             mask & ok_d[li]))
+                oks.append((kmax <= kpad) & ~over)
+            ok = torch.stack([o.to(mesh.first) for o in oks]).all()
+            return tuple(tbls), ok
 
     tbl0 = tuple((c.nbr_idx, c.nbr_off, c.nbr_sidx, c.nbr_mask)
                  for c in sh.cfgs)
@@ -628,32 +633,33 @@ def _sharded_forces_fn(shards_with, vs, amask, params, exponent, check_beta,
     images, else scalars."""
 
     def forces_fn(pos, tbl=None):
-        sh = shards_with(tbl)
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            # the leaf's one consumer is a view on its own device, so its
-            # gradient reaches the leaf from that device's stream; fed
-            # straight into the shards' copies it arrived from each
-            # copy's backward on another card, which torch reports as an
-            # AccumulateGrad stream mismatch (a sync, and a stop to CUDA
-            # graph capture).  The virial path's strain product and
-            # sharded_predict's do the same.
-            p_in = p.view_as(p)
-            if mean_e is not None:
-                e, bmax = _psum_committee_energy(
-                    sh, p_in, None, params, exponent, vs, mean_e, meta_scale,
-                    meta_vs)
-                if not check_beta:
-                    bmax = torch.zeros_like(bmax)
-            else:
-                e, passes = _psum_energy(sh, p_in, None, params, exponent,
-                                         meta_scale, meta_vs)
-            (g,) = torch.autograd.grad(e.sum(), p)
-        f = -g * amask
-        if mean_e is None:
-            bmax = _sharded_beta_max(sh, passes, vs, check_beta, pos)
-        e = e.detach()
-        return (e, f, bmax) if sh.nimg > 1 else (e[0], f, bmax[0])
+        with span("af.forces"):
+            sh = shards_with(tbl)
+            with torch.enable_grad():
+                p = pos.detach().requires_grad_(True)
+                # the leaf's one consumer is a view on its own device, so
+                # its gradient reaches the leaf from that device's stream;
+                # fed straight into the shards' copies it arrived from each
+                # copy's backward on another card, which torch reports as
+                # an AccumulateGrad stream mismatch (a sync, and a stop to
+                # CUDA graph capture).  The virial path's strain product
+                # and sharded_predict's do the same.
+                p_in = p.view_as(p)
+                if mean_e is not None:
+                    e, bmax = _psum_committee_energy(
+                        sh, p_in, None, params, exponent, vs, mean_e,
+                        meta_scale, meta_vs)
+                    if not check_beta:
+                        bmax = torch.zeros_like(bmax)
+                else:
+                    e, passes = _psum_energy(sh, p_in, None, params, exponent,
+                                             meta_scale, meta_vs)
+                (g,) = torch.autograd.grad(e.sum(), p)
+            f = -g * amask
+            if mean_e is None:
+                bmax = _sharded_beta_max(sh, passes, vs, check_beta, pos)
+            e = e.detach()
+            return (e, f, bmax) if sh.nimg > 1 else (e[0], f, bmax[0])
 
     return forces_fn
 
@@ -667,28 +673,30 @@ def _sharded_forces_virial_fn(shards_with, vs, amask, params, exponent,
     so forces and virial come out reduced over every shard."""
 
     def forces_fn(pos, cell, tbl=None):
-        sh = shards_with(tbl)
-        with torch.enable_grad():
-            p = pos.detach().requires_grad_(True)
-            eps = torch.zeros((3, 3) if aniso else (), dtype=pos.dtype,
-                              device=pos.device, requires_grad=True)
+        with span("af.forces"):
+            sh = shards_with(tbl)
+            with torch.enable_grad():
+                p = pos.detach().requires_grad_(True)
+                eps = torch.zeros((3, 3) if aniso else (), dtype=pos.dtype,
+                                  device=pos.device, requires_grad=True)
+                if aniso:
+                    sc = torch.eye(3, dtype=p.dtype, device=p.device) + eps
+                    p_s, cell_s = p @ sc.T, cell @ sc.T
+                else:
+                    p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
+                if mean_e is not None:
+                    e, bmax = _psum_committee_energy(sh, p_s, cell_s, params,
+                                                     exponent, vs, mean_e)
+                    bmax = bmax if check_beta else torch.zeros_like(bmax)
+                else:
+                    e, passes = _psum_energy(sh, p_s, cell_s, params,
+                                             exponent)
+                g, deps = torch.autograd.grad(e.sum(), (p, eps))
             if aniso:
-                sc = torch.eye(3, dtype=p.dtype, device=p.device) + eps
-                p_s, cell_s = p @ sc.T, cell @ sc.T
-            else:
-                p_s, cell_s = p * (1.0 + eps), cell * (1.0 + eps)
-            if mean_e is not None:
-                e, bmax = _psum_committee_energy(sh, p_s, cell_s, params,
-                                                 exponent, vs, mean_e)
-                bmax = bmax if check_beta else torch.zeros_like(bmax)
-            else:
-                e, passes = _psum_energy(sh, p_s, cell_s, params, exponent)
-            g, deps = torch.autograd.grad(e.sum(), (p, eps))
-        if aniso:
-            deps = 0.5 * (deps + deps.T)
-        if mean_e is None:
-            bmax = _sharded_beta_max(sh, passes, vs, check_beta, pos)
-        return e.detach()[0], -g * amask, deps, bmax[0]
+                deps = 0.5 * (deps + deps.T)
+            if mean_e is None:
+                bmax = _sharded_beta_max(sh, passes, vs, check_beta, pos)
+            return e.detach()[0], -g * amask, deps, bmax[0]
 
     return forces_fn
 

@@ -3,17 +3,31 @@
 The reference stamps wall-clock nodes per calculate() (active.py:426-533;
 ActiveCalculator mirrors that with report_timings=True).  For device-level
 analysis this module adds a ``torch.profiler`` trace of a block, written
-as a Chrome trace, and a tiny phase stopwatch.
+as a Chrome trace, and :func:`span`, the named ranges the device loops
+put at their boundaries (``af.chunk``, ``af.chunk_start``, ``af.step``,
+``af.forces``, ``af.rebuild``, ``af.host_read``), which land in such a
+trace on the profiler's clock beside the kernels they launch.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 
 import torch
+from torch.autograd.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name):
+    """A ``record_function`` range named ``name`` while a torch profiler is
+    recording, else one shared no-op context: with no profiler a span
+    costs one predicate call, under a microsecond, where an unguarded
+    ``record_function`` costs over ten."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
 
 
 @contextlib.contextmanager
@@ -38,28 +52,3 @@ def trace(logdir="torch_trace", cuda=None):
             torch.cuda.synchronize()
         prof.stop()
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class Stopwatch:
-    """Accumulating phase timer (reference per-rank stopwatch idiom,
-    cl/__init__.py:73-89)."""
-
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def __call__(self, phase):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[phase] += time.perf_counter() - t0
-            self.counts[phase] += 1
-
-    def report(self):
-        return {
-            k: {"total_s": v, "calls": self.counts[k],
-                "mean_ms": 1e3 * v / max(self.counts[k], 1)}
-            for k, v in sorted(self.totals.items())
-        }

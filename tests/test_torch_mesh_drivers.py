@@ -8,9 +8,9 @@ under the moving cell), ``DeviceFIRE`` (fixed and variable cell),
 on a mesh whose data axis pads the rows, a committee and the fused ActiveMeta
 bias under a mesh, ``cl.md`` with ``mesh = make_mesh(...)`` in ARGS, a
 BCM spawn keeping the mesh, ``mesh_bench`` at a tiny size, and the
-``torch.profiler`` trace of ``profiling``.  The meshes repeat the ``cpu``
-device; the Langevin noise is seeded per step, so a sharded and an
-unsharded run draw the same numbers.
+``torch.profiler`` trace and spans of ``profiling``.  The meshes repeat
+the ``cpu`` device; the Langevin noise is seeded per step, so a sharded
+and an unsharded run draw the same numbers.
 
 The model is the JAX package's own mesh tests' (tests/test_parallel.py
 ``build_state``: five inducing environments of rc = 3.2 A, lmax = nmax =
@@ -453,22 +453,17 @@ def test_mesh_bench_at_a_tiny_size(capsys):
     assert b["psum_forces"] == 32 * 3 * 8 and b["pmax_beta"] == 16
 
 
-def test_profiling_stopwatch_and_trace(tmp_path):
-    from autoforce_tpu_torch.profiling import Stopwatch, trace
+def test_profiling_trace_and_spans(tmp_path):
+    from autoforce_tpu_torch.profiling import span, trace
 
-    sw = Stopwatch()
-    with sw("a"):
-        pass
-    with sw("a"):
-        pass
-    with sw("b"):
-        pass
-    rep = sw.report()
-    assert rep["a"]["calls"] == 2 and rep["b"]["calls"] == 1
-    assert rep["a"]["total_s"] >= 0.0 and "mean_ms" in rep["a"]
     with trace(str(tmp_path / "tr"), cuda=False) as prof:
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("af.step"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "tr" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
     assert any("mm" in k.key for k in prof.key_averages())
+    step = [e for e in events if e.get("name") == "af.step"]
+    assert len(step) == 1 and step[0]["cat"] == "user_annotation"
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert step[0]["ts"] <= mm[0]["ts"] <= step[0]["ts"] + step[0]["dur"]

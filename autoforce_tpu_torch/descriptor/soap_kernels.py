@@ -205,23 +205,33 @@ def nvcc_path():
     return "/usr/local/cuda/bin/nvcc"
 
 
-def build_library(force=False):
-    """Compile ``csrc/soap_coeff.cu`` for sm_90a into the build directory
-    (skipped while the library is newer than its source); returns its
-    path.  nvcc's ``-Xptxas -v`` report lands in ``build_log``."""
-    global build_log
-    fresh = (os.path.isfile(LIB_PATH)
-             and os.path.getmtime(LIB_PATH) >= os.path.getmtime(_SRC))
+def compile_library(src, lib_path, force=False):
+    """Compile the CUDA source ``src`` for sm_90a into ``lib_path`` with
+    ``NVCC_FLAGS`` (skipped while the library is newer than its source);
+    returns nvcc's output (its ``-Xptxas -v`` report), "" when skipped."""
+    fresh = (os.path.isfile(lib_path)
+             and os.path.getmtime(lib_path) >= os.path.getmtime(src))
     if fresh and not force:
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, _SRC]
+        return ""
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
     res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
+    out = res.stdout + res.stderr
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-    os.replace(tmp, LIB_PATH)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{out}")
+    os.replace(tmp, lib_path)
+    return out
+
+
+def build_library(force=False):
+    """Compile ``csrc/soap_coeff.cu`` into the build directory
+    (:func:`compile_library`); returns its path.  nvcc's report of a
+    build lands in ``build_log``."""
+    global build_log
+    out = compile_library(_SRC, LIB_PATH, force)
+    if out:
+        build_log = out
     return LIB_PATH
 
 

@@ -1,16 +1,25 @@
-"""On-device neighbor-table rebuild (minimum-image convention), plain torch
+"""On-device neighbor-table rebuild (minimum-image convention)
 (port of ``autoforce_tpu/neighbors_device.py``).
 
 Rebuilds the padded table on the device from the current device
 positions, so device-resident MD (md/device_md.py) never leaves the card
 for a skin breach.
 
-Method: chunked brute-force MIC.  For each row block of B atoms, the
-fractional pair deltas g = f_j - f_i give the image shift
+:func:`device_neighbor_table` dispatches on the tensor's device: a CUDA
+tensor goes to the cell-list kernels of ``csrc/cell_pairs.cu`` (compiled
+at first use with ``nvcc``, loaded with ctypes; their launches are
+counted in ``device_neighbor_table.launches``), a CPU tensor to
+:func:`device_neighbor_table_plain` — there is no fallback from one to the
+other.
+
+The plain version is a chunked brute-force MIC search.  For each row block
+of B atoms, the fractional pair deltas g = f_j - f_i give the image shift
 ``off = -rint(g)`` and displacement ``rvec = (g + off) @ cell``; pairs
 with d <= cutoff are compacted left into the fixed K slots with a cumsum +
 scatter (no sort).  Slots past ``kpad`` are scattered into one extra trash
-column that is sliced off (torch has no drop mode for scatters).
+column that is sliced off (torch has no drop mode for scatters).  The
+kernels test the same pairs, only those of the atoms in neighboring bins
+of a cell list, and write them in bin order.
 
 Valid when every perpendicular cell width is >= 2 * cutoff and the system
 is fully periodic; callers check :func:`device_rebuild_ok`.
@@ -22,8 +31,22 @@ order-invariant).
 
 from __future__ import annotations
 
+import ctypes
+import os
+import threading
+
 import numpy as np
 import torch
+
+from . import BUILD_DIR
+from .descriptor.soap_kernels import compile_library
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "cell_pairs.cu")
+LIB_PATH = os.path.join(BUILD_DIR, "libcellpairs.so")
+_lock = threading.Lock()
+_lib = None
+build_log = ""  # nvcc's output of the last build
 
 
 def device_rebuild_ok(cell, pbc, cutoff):
@@ -56,7 +79,9 @@ def inv3(m):
 
 def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512,
                           row_ids=None, row_mask=None):
-    """Rebuild the padded neighbor table on the device.
+    """Rebuild the padded neighbor table on the device: the cell-list
+    kernels on a CUDA tensor, :func:`device_neighbor_table_plain` (which
+    alone reads ``block``) on a CPU tensor.
 
     Args:
         positions: (N, 3) current (possibly padded) positions, or (R, N, 3)
@@ -80,6 +105,25 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512,
         int8 range).  Empty slots self-point at the row.  Nothing here
         synchronizes with the host.
     """
+    if positions.device.type == "cpu":
+        return device_neighbor_table_plain(positions, cell, atom_mask, cutoff,
+                                           kpad, block, row_ids, row_mask)
+    if positions.device.type != "cuda":
+        raise ValueError(f"unsupported device {positions.device}")
+    lib = _load()
+    with torch.cuda.device(positions.device):
+        return cell_list_table(lib, torch.cuda.current_stream().cuda_stream,
+                               positions, cell, atom_mask, cutoff, kpad,
+                               row_ids, row_mask)
+
+
+device_neighbor_table.launches = 0
+
+
+def device_neighbor_table_plain(positions, cell, atom_mask, cutoff, kpad,
+                                block=512, row_ids=None, row_mask=None):
+    """The brute-force MIC search in plain torch, in blocks of ``block``
+    rows; arguments and results as :func:`device_neighbor_table`."""
     batched = positions.dim() == 3
     if not batched:
         positions, atom_mask = positions[None], atom_mask[None]
@@ -133,6 +177,113 @@ def device_neighbor_table(positions, cell, atom_mask, cutoff, kpad, block=512,
         idx, off, mask = idx[0], off[0], mask[0]
     return (idx, off, mask, torch.cat(counts, dim=1).max(),
             torch.stack(overs).any())
+
+
+def build_library(force=False):
+    """Compile ``csrc/cell_pairs.cu`` into the build directory
+    (``soap_kernels.compile_library``); returns its path.  nvcc's report
+    of a build lands in ``build_log``."""
+    global build_log
+    out = compile_library(_SRC, LIB_PATH, force)
+    if out:
+        build_log = out
+    return LIB_PATH
+
+
+def _load():
+    """The cell-list library (built at first use), bound."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = bind_cell_list(ctypes.CDLL(build_library()))
+    return _lib
+
+
+def bind_cell_list(lib):
+    """Argument types of the three launch entry points of a built library."""
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    lib.cell_bin.restype = i32
+    lib.cell_bin.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
+    lib.cell_gather.restype = i32
+    lib.cell_gather.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                ptr, ptr, ptr, ptr]
+    lib.cell_pairs.restype = i32
+    lib.cell_pairs.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                               i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr,
+                               ptr]
+    return lib
+
+
+def _launched(code, what):
+    device_neighbor_table.launches += 1
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed (cudaError {code})")
+
+
+def _cut2(cutoff, dev):
+    """cutoff**2 as one float64 on ``dev``, squared in the cutoff's own
+    type as the plain version squares it; no host-to-card copy."""
+    if torch.is_tensor(cutoff) and cutoff.device.type != "cpu":
+        return (cutoff**2).to(device=dev, dtype=torch.float64).reshape(())
+    return torch.full((), float(cutoff**2), dtype=torch.float64, device=dev)
+
+
+def cell_list_table(lib, stream, positions, cell, atom_mask, cutoff, kpad,
+                    row_ids=None, row_mask=None):
+    """The table through the cell-list kernels of ``lib`` (bound as by
+    :func:`bind_cell_list`) launched on ``stream``; arguments and results
+    as :func:`device_neighbor_table`.  Bins: at most one per candidate
+    atom (``max_bins = N``), known from the shapes."""
+    if positions.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"positions must be float32 or float64, got "
+                        f"{positions.dtype}")
+    batched = positions.dim() == 3
+    if not batched:
+        positions, atom_mask = positions[None], atom_mask[None]
+    R, N = positions.shape[:2]
+    if row_ids is not None and R != 1:
+        raise ValueError("row_ids are not taken with (R, N, 3) positions")
+    dev = positions.device
+    frac = (positions @ inv3(cell)).contiguous()  # as the plain version
+    cellc = cell.to(frac.dtype).contiguous()
+    cut2 = _cut2(cutoff, dev)
+    amask = atom_mask.to(torch.bool).contiguous()
+    if row_ids is None:
+        n, rows, rmask = N, None, amask
+    else:
+        rows = row_ids.to(device=dev, dtype=torch.int32).contiguous()
+        n = rows.shape[0]
+        rmask = (amask[:, row_ids] if row_mask is None
+                 else row_mask.to(torch.bool)[None]).contiguous()
+    idx = torch.empty((R, n, kpad), dtype=torch.int32, device=dev)
+    off = torch.empty((R, n, kpad, 3), dtype=torch.int8, device=dev)
+    mask = torch.empty((R, n, kpad), dtype=torch.bool, device=dev)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)  # kmax, off_over
+    if R * N > 0 and n > 0:
+        is64 = int(frac.dtype == torch.float64)
+        ptrs = (frac.data_ptr(), cellc.data_ptr(), cut2.data_ptr())
+        key = torch.empty(R * N, dtype=torch.int32, device=dev)
+        _launched(lib.cell_bin(is64, *ptrs, amask.data_ptr(), R, N, N,
+                               key.data_ptr(), stream), "cell_bin")
+        skey, order = torch.sort(key, stable=True)
+        sfrac = torch.empty_like(frac)
+        sidx = torch.empty(R * N, dtype=torch.int32, device=dev)
+        start = torch.empty(R * (N + 1) + 1, dtype=torch.int32, device=dev)
+        _launched(lib.cell_gather(is64, *ptrs, skey.data_ptr(),
+                                  order.data_ptr(), R, N, N,
+                                  sfrac.data_ptr(), sidx.data_ptr(),
+                                  start.data_ptr(), stream), "cell_gather")
+        _launched(lib.cell_pairs(is64, *ptrs,
+                                 None if rows is None else rows.data_ptr(),
+                                 rmask.data_ptr(), sfrac.data_ptr(),
+                                 sidx.data_ptr(), start.data_ptr(), R, N, n,
+                                 N, kpad, idx.data_ptr(), off.data_ptr(),
+                                 mask.data_ptr(), stats.data_ptr(), stream),
+                  "cell_pairs")
+    if not batched:
+        idx, off, mask = idx[0], off[0], mask[0]
+    return idx, off, mask, stats[0].to(torch.int64), stats[1] != 0
 
 
 def reverse_slots(idx, off, mask):

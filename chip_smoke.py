@@ -209,6 +209,16 @@ Phases (any fault ends the run with a non-zero exit and no ``ok`` line):
    ``analysis.logs`` on phase 5's active.log (the last parsed sizes are
    phase 5's), ``log_to_figure`` to a PNG where matplotlib is installed,
    ``TrajAnalyser`` and ``rdf`` on frames of phase 4's serving MD.
+14. The neighbor rebuild (run right after phase 2): the cell-list kernels
+   of ``csrc/cell_pairs.cu`` (built in phase 1) against the plain brute
+   force on the card at the benchmark cell's shape (62,500 Cu atoms,
+   rattled 0.05 A, rc + skin = 7.2 A, 200 slots, float32): the same
+   (j, off) pairs per row but for pairs within float32 rounding of the
+   cutoff (at most 4), the same counts, and the device time per call of
+   both (CUDA events over warmed calls).  Then ``DeviceNPT`` (isotropic,
+   its moving cell) and ``ReplicaMD`` (two walkers stacked) on the bench
+   model, one 10-step chunk each, which must rebuild their tables
+   through the kernels.
 6. Timings: steps/s of phase 4; each kernel's device time beside its
    plain version's and its bound at the timing shapes (the MD bucket of
    phase 4, the 10,192-atom snapshot, the 4-species snapshot, the NEB
@@ -223,7 +233,7 @@ Each phase logs its wall time; the whole script is held to 1000 s on an
 H100 (its time limit is 1200 s).  Before the last lines come JSON objects
 with each phase's numbers (``drivers``, ``otf``, ``kernel_space``,
 ``committee``, ``replicas_meta_multitask_parametric``, ``offline_oracle``,
-``mesh``, ``periphery``);
+``mesh``, ``periphery``, ``neighbor_rebuild``);
 the line before the card's is one JSON object with every kernel's numbers
 (launches split by path: serving MD, OTF learning, each structure driver,
 each kernel-space path, each committee path, the replica ensemble, the
@@ -354,13 +364,94 @@ def log(*a):
 
 
 def phase_build():
+    from autoforce_tpu_torch import neighbors_device as nd
     from autoforce_tpu_torch.descriptor import soap_kernels as sk
     from autoforce_tpu_torch.tools import soap_bench as sb
 
-    t0 = time.time()
-    sk.build_library(force=True)
-    log(f"built {sk.LIB_PATH} in {time.time() - t0:.1f} s")
-    sb.print_build_report(sk.build_log)
+    for lib in (sk, nd):
+        t0 = time.time()
+        lib.build_library(force=True)
+        log(f"built {lib.LIB_PATH} in {time.time() - t0:.1f} s")
+        sb.print_build_report(lib.build_log)
+
+
+def phase_neighbors(card):
+    """14. The cell-list kernels against the plain brute force at the
+    benchmark cell's shape, both timed; then one NPT and one replica
+    chunk whose rebuilds go through the kernels."""
+    import numpy as np
+    import torch
+
+    from autoforce_tpu_torch import neighbors_device as nd
+    from autoforce_tpu_torch.md import device_npt as dnpt
+    from autoforce_tpu_torch.md import replica_md as rmd
+    from autoforce_tpu_torch.system import bulk_fcc, maxwell_boltzmann_velocities
+    from autoforce_tpu_torch.tools import driver_bench as db
+    from autoforce_tpu_torch.tools import ensemble_bench as eb
+    from autoforce_tpu_torch.tools import soap_bench as sb
+    from autoforce_tpu_torch.units import fs
+
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from neighbor_sets import slot_keys  # the tests' set comparison
+
+    s = bulk_fcc("Cu", 3.6).repeat((25, 25, 25))
+    s.rattle(0.05, seed=11)
+    pos = torch.as_tensor(s.positions, dtype=torch.float32, device="cuda")
+    cell = torch.as_tensor(s.cell, dtype=torch.float32, device="cuda")
+    amask = torch.ones(len(s), dtype=torch.bool, device="cuda")
+    args = (pos, cell, amask, 7.2, 200)
+
+    def device_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+
+    out = nd.device_neighbor_table(*args)
+    ref = nd.device_neighbor_table_plain(*args)
+    mine, theirs = slot_keys(*out[:3]), slot_keys(*ref[:3])
+    diff = torch.cat([mine[~torch.isin(mine, theirs)],
+                      theirs[~torch.isin(theirs, mine)]])
+    kmax, kref = int(out[3]), int(ref[3])
+    ms_k = device_ms(lambda: nd.device_neighbor_table(*args), 20)
+    ms_p = device_ms(lambda: nd.device_neighbor_table_plain(*args), 2)
+    log(f"neighbor rebuild, {len(s)} atoms float32 cutoff 7.2 kpad 200: "
+        f"{mine.numel()} pairs, {diff.numel()} differ from plain, kmax "
+        f"{kmax} (plain {kref}); kernels {ms_k:.3f} ms per table, plain "
+        f"{ms_p:.1f} ms [{card}]")
+    if diff.numel() > 4 or abs(kmax - kref) > diff.numel() or bool(out[4]):
+        raise AssertionError("cell-list table disagrees with the plain search")
+    npairs = int(mine.numel())
+    del out, ref, mine, theirs
+    calc = db.serving_calc()
+    npt_sys = sb.bench_system()
+    npt_sys.calc = calc
+    maxwell_boltzmann_velocities(npt_sys, 300, seed=3)
+    runs = {
+        "npt": dnpt.DeviceNPT(npt_sys, calc, 2 * fs, pressure_GPa=0.0,
+                              isotropic=True, temperature_K=300, tdamp=50 * fs,
+                              pdamp=500 * fs, chunk=10, check_beta=False),
+        "replicas": rmd.ReplicaMD(eb.replica_systems(2), calc, dt=2 * fs,
+                                  temperature_K=eb.TEMPERATURE_K,
+                                  friction=0.02, chunk=10, check_beta=False),
+    }
+    counts = {}
+    for name, dyn in runs.items():
+        nd.device_neighbor_table.launches = 0
+        dyn.run(10)
+        torch.cuda.synchronize()
+        counts[name] = nd.device_neighbor_table.launches
+    log(f"cell-list launches: {counts}")
+    if not all(counts.values()) or not np.isfinite(npt_sys.positions).all():
+        raise AssertionError("a driver's rebuild missed the cell-list kernels")
+    return dict(kernel_ms=ms_k, plain_ms=ms_p, pairs=npairs,
+                differ=int(diff.numel()), launches=counts)
 
 
 def phase_kernels(cases):
@@ -3130,6 +3221,8 @@ def run_phases(torch):
     worst = phase_kernels(cases)
     del cases
     took(2)
+    nbr_numbers = phase_neighbors(card)
+    took(14)
     phase_accuracy(model)
     took(3)
     rates, launches, drift, md_inputs, dyn = phase_md(model, card)
@@ -3221,6 +3314,7 @@ def run_phases(torch):
     print(json.dumps({"offline_oracle": off_numbers}))
     print(json.dumps({"mesh": mesh_numbers}, default=str))
     print(json.dumps({"periphery": peri_numbers}, default=str))
+    print(json.dumps({"neighbor_rebuild": nbr_numbers}))
     log(f"chip_smoke took {time.time() - t_all:.1f} s after the card check "
         f"(ceiling 1000 s)")
     print(json.dumps({"kernels": rows}))

@@ -9,29 +9,14 @@ import torch
 from autoforce_tpu.neighbors_device import device_neighbor_table as jax_device_table
 from autoforce_tpu.neighbors_device import reverse_slots as jax_reverse_slots
 from autoforce_tpu_torch.neighbors import neighbor_table, reverse_slots_host
+from autoforce_tpu_torch import neighbors_device
 from autoforce_tpu_torch.neighbors_device import (
     device_neighbor_table,
     device_rebuild_ok,
     reverse_slots,
 )
 from autoforce_tpu_torch.system import bulk_fcc
-
-
-def rattled(reps=(3, 3, 3), a=3.6, seed=0, stdev=0.1, shear=0.0):
-    s = bulk_fcc("Cu", a).repeat(reps)
-    if shear:
-        cell = s.cell.copy()
-        cell[2, 0] += shear
-        s.set_cell(cell, scale_atoms=True)
-    s.rattle(stdev, seed=seed)
-    return s
-
-
-def row_sets(idx, off, mask):
-    return [
-        {(int(j), *map(int, o)) for j, o, m in zip(idx[i], off[i], mask[i]) if m}
-        for i in range(idx.shape[0])
-    ]
+from neighbor_sets import rattled, row_sets
 
 
 @pytest.mark.parametrize("shear,block", [(0.0, 512), (0.9, 16)])
@@ -92,6 +77,19 @@ def test_bucket_overflow_is_reported():
     )
     assert int(kmax) == count > kpad
     assert idx.shape == (len(s), kpad) and bool(mask.all(1).any())
+
+
+def test_cpu_tensor_takes_the_plain_search(monkeypatch):
+    monkeypatch.setattr(device_neighbor_table, "launches", 0)
+    monkeypatch.setattr(neighbors_device, "_load", None)  # never reached
+    s = rattled(seed=2)
+    args = (torch.as_tensor(s.positions), torch.as_tensor(s.cell),
+            torch.ones(len(s), dtype=torch.bool), 4.8, 64)
+    out = device_neighbor_table(*args, block=32)
+    ref = neighbors_device.device_neighbor_table_plain(*args, block=32)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert device_neighbor_table.launches == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])
